@@ -1,0 +1,81 @@
+"""The port on the card: the CUDA flash kernel against its plain version,
+the model's flash path against its einsum path, and no quiet fallback
+when the kernel cannot be built.
+
+Every test here needs a CUDA device and skips without one.  The file
+imports neither JAX nor the JAX package, so it runs where only PyTorch
+is installed:
+
+    python -m pytest --noconftest -p no:cacheprovider \\
+        tests/test_torch_port_cuda.py -m cuda -q
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from horovod_tpu_torch import kernels
+from horovod_tpu_torch.models import gpt
+from horovod_tpu_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    # fp32 references at 1e-4 need full fp32 products.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+# bf16/fp16 at 3e-2: the kernel rounds P to the input type before P.V.
+# fp32 at 1e-4: both sides accumulate in fp32, in another order.
+@pytest.mark.parametrize("bh,sq,skv,d,dtype,causal,tol", [
+    (96, 1024, 1024, 64, torch.bfloat16, True, 3e-2),
+    (4, 1000, 1000, 64, torch.float32, False, 1e-4),
+    (3, 40, 72, 16, torch.float32, True, 1e-4),
+    (2, 130, 77, 32, torch.float16, False, 3e-2),
+    (2, 200, 200, 128, torch.float32, True, 1e-4),
+    (2, 100, 60, 128, torch.bfloat16, True, 3e-2),
+])
+def test_cuda_kernel_matches_plain(cuda, bh, sq, skv, d, dtype, causal,
+                                   tol):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(bh, sq, d, device=cuda, generator=g).to(dtype)
+    k = torch.randn(bh, skv, d, device=cuda, generator=g).to(dtype)
+    v = torch.randn(bh, skv, d, device=cuda, generator=g).to(dtype)
+    before = fa.launches
+    got = fa.flash_attention_cuda(q, k, v, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref = fa.flash_attention_reference(q, k, v, d ** -0.5, causal)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_tiny_gpt_flash_matches_einsum_on_card(cuda):
+    cfg = gpt.gpt_tiny_config(dtype=torch.float32, dropout=0.0)
+    einsum = gpt.GPTLMHeadModel(cfg, device=cuda, seed=0).eval()
+    flash = gpt.GPTLMHeadModel(
+        dataclasses.replace(cfg, attention_impl="flash"), device=cuda,
+        seed=0).eval()
+    flash.load_state_dict(einsum.state_dict())
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    before = fa.launches
+    with torch.no_grad():
+        ref, got = einsum(ids), flash(ids)
+    assert fa.launches - before == cfg.num_layers
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_broken_build_raises_on_cuda_tensors(cuda, tmp_path, monkeypatch):
+    (tmp_path / "flash_attn_fwd.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(kernels, "KERNEL_DIR", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(kernels, "_loaded", {})
+    x = torch.zeros(1, 8, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fa.flash_attention_cuda(x, x, x, 0.25, True)
