@@ -15,6 +15,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -39,6 +40,10 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 STEPS = 6
 BATCH, SEQ = 8, 1024
+# What flash_attn_fwd.cu instantiates of the wgmma body, as kernel_label
+# names it.
+WGMMA_INSTANTIATIONS = sorted(f"wgmma<{t}, {d}>" for t in ("bf16", "fp16")
+                              for d in (64, 128))
 
 
 def card() -> str:
@@ -81,44 +86,127 @@ def qkv(bh, sq, skv, d, dtype, seed):
             torch.randn(bh, skv, d, device="cuda", generator=g).to(dtype))
 
 
+def kernel_label(mangled: str) -> str:
+    """``wgmma<bf16, 64>`` from a mangled kernel name of flash_attn_fwd.cu."""
+    body = re.search(r"flash_fwd_(fp32|mma|wgmma)_kernel", mangled)
+    dim = re.search(r"Li(\d+)E", mangled)
+    dtype = ("bf16" if "nv_bfloat16" in mangled else
+             "fp16" if "__half" in mangled else "fp32")
+    if not body:
+        return mangled
+    return f"{body.group(1)}<{dtype}, {dim.group(1) if dim else '?'}>"
+
+
 def phase_build():
+    """Builds the kernels from this checkout and reads what was built:
+    per instantiation the HGMMA (wgmma), UTMALDG (TMA load) and SYNCS
+    (mbarrier) instructions in its SASS, its registers and spill bytes
+    from the ptxas log.  Any of the four wgmma instantiations missing,
+    one without HGMMA or UTMALDG, one that spills, or a log that says
+    setmaxnreg was ignored (C7508) fails the build."""
     t0 = time.perf_counter()
     kernels.load("flash_attn_fwd.cu")
+    nvcc_s = kernels.build_seconds["flash_attn_fwd.cu"]
+    report, warnings = kernels.build_report("flash_attn_fwd.cu")
+    per_kernel = {kernel_label(name): info
+                  for name, info in sorted(report.items())}
+    faults = [w for w in warnings if "C7508" in w]
+    found = sorted(label for label in per_kernel if label.startswith("wgmma"))
+    if found != WGMMA_INSTANTIATIONS:
+        faults.append(f"wgmma instantiations {found}, expected "
+                      f"{WGMMA_INSTANTIATIONS}")
+    for label in found:
+        info = per_kernel[label]
+        if not info.get("HGMMA") or not info.get("UTMALDG"):
+            faults.append(f"{label}: no HGMMA or no UTMALDG in its SASS")
+        if "spill_bytes" not in info:
+            faults.append(f"{label}: no spill line in the ptxas log")
+        elif info["spill_bytes"]:
+            faults.append(f"{label}: spills {info['spill_bytes']} bytes")
     emit("build", source="horovod_tpu_torch/kernels/flash_attn_fwd.cu",
-         nvcc_s=kernels.build_seconds["flash_attn_fwd.cu"],
-         total_s=time.perf_counter() - t0)
+         nvcc_s=nvcc_s, total_s=time.perf_counter() - t0,
+         kernels=per_kernel, ptxas_warnings=warnings)
+    if faults:
+        raise RuntimeError("build check failed: " + "; ".join(faults))
+
+
+def host_us_per_call(fn, calls: int = 100) -> float:
+    """Host time per call: the wall time of ``calls`` calls enqueued behind
+    a sleep kernel that keeps the card busy, so that no call waits for
+    the device and none of the device's time is in the reading."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of device time
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
 
 
 def phase_kernels() -> dict:
     """The CUDA flash forward against its plain version (fp32 matmuls,
-    no TF32), at the GPT-2-small training shape and two ragged ones."""
+    no TF32): each body at the GPT-2-small training shape and at ragged
+    ones.  Then the wgmma body, the mma.sync body and sdpa timed at the
+    GPT shape in one call, in turns."""
     torch.backends.cuda.matmul.allow_tf32 = False
     heads, hd = 12, 64
-    cases = [("gpt2_small", BATCH * heads, SEQ, SEQ, hd, torch.bfloat16,
-              True, 3e-2),
-             ("fp32_ragged", 4, 1000, 1000, 64, torch.float32, False, 1e-4),
-             ("fp32_causal_short", 3, 40, 72, 16, torch.float32, True,
-              1e-4)]
-    errors = {}
-    for i, (name, bh, sq, skv, d, dtype, causal, tol) in enumerate(cases):
+    bh_gpt = BATCH * heads
+    bf16, fp16, fp32 = torch.bfloat16, torch.float16, torch.float32
+    # (name, bh, sq, skv, d, dtype, causal, tolerance, body or None for
+    # the wrapper's choice); 16-bit at 3e-2 because P is rounded to the
+    # input type before P.V, fp32 at 1e-4.
+    cases = [("gpt2_small", bh_gpt, SEQ, SEQ, hd, bf16, True, 3e-2, None),
+             ("gpt2_small_mma", bh_gpt, SEQ, SEQ, hd, bf16, True, 3e-2,
+              fa.BODY_MMA),
+             ("wgmma_noncausal_1000", 4, 1000, 1000, 64, bf16, False, 3e-2,
+              None),
+             ("wgmma_fp16_d128_1000x777", 2, 1000, 777, 128, fp16, True,
+              3e-2, None),
+             ("wgmma_one_row_tail_129", 1, 129, 129, 64, bf16, True, 3e-2,
+              None),
+             ("wgmma_d128_64x300", 3, 64, 300, 128, bf16, False, 3e-2,
+              None),
+             ("mma_fp16_d32", 2, 130, 77, 32, fp16, False, 3e-2, None),
+             ("fp32_ragged", 4, 1000, 1000, 64, fp32, False, 1e-4, None),
+             ("fp32_causal_short", 3, 40, 72, 16, fp32, True, 1e-4, None)]
+    errors, bodies = {}, {}
+    for i, (name, bh, sq, skv, d, dtype, causal, tol, body) in \
+            enumerate(cases):
         q, k, v = qkv(bh, sq, skv, d, dtype, seed=i)
-        got = fa.flash_attention_cuda(q, k, v, d ** -0.5, causal)
+        want = fa._body_for(dtype, d) if body is None else body
+        before = dict(fa.launches_by_body)
+        got = fa.flash_attention_cuda(q, k, v, d ** -0.5, causal, body=body)
         torch.cuda.synchronize()
+        assert fa.launches_by_body[want] == before[want] + 1, name
+        bodies[name] = fa.BODY_NAMES[want]
         ref = fa.flash_attention_reference(q, k, v, d ** -0.5, causal)
         errors[name] = (got.float() - ref.float()).abs().max().item()
         torch.testing.assert_close(got.float(), ref.float(), atol=tol,
                                    rtol=tol, msg=lambda m: f"{name}: {m}")
 
-    bh, d = BATCH * heads, hd
-    q, k, v = qkv(bh, SEQ, SEQ, d, torch.bfloat16, seed=0)
+    bh, d = bh_gpt, hd
+    q, k, v = qkv(bh, SEQ, SEQ, d, bf16, seed=0)
     scale = d ** -0.5
     q4, k4, v4 = (t.view(BATCH, heads, SEQ, d) for t in (q, k, v))
-    ms = median_ms(lambda: fa.flash_attention_cuda(q, k, v, scale, True))
+    timed = {
+        "wgmma": lambda: fa.flash_attention_cuda(q, k, v, scale, True),
+        "mma": lambda: fa.flash_attention_cuda(q, k, v, scale, True,
+                                               body=fa.BODY_MMA),
+        "sdpa": lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                       is_causal=True)}
+    order = ["wgmma", "mma", "sdpa", "sdpa", "mma", "wgmma"]
+    runs = {name: [] for name in timed}
+    for name in order:
+        runs[name].append(median_ms(timed[name], launches=20))
+    ms, earlier_ms, library_ms = (statistics.mean(runs[n])
+                                  for n in ("wgmma", "mma", "sdpa"))
     plain_ms = median_ms(
         lambda: fa.flash_attention_reference(q, k, v, scale, True),
         launches=2, rounds=3)
-    library_ms = median_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True))
+    host_us = {name: host_us_per_call(timed[name])
+               for name in ("wgmma", "sdpa")}
     # Least work: read q, k, v once, write o once; two products over
     # the S(S+1)/2 unmasked (q, k) pairs of every head.
     nbytes = 4 * bh * SEQ * d * q.element_size()
@@ -129,13 +217,15 @@ def phase_kernels() -> dict:
            "source": "horovod_tpu_torch/kernels/flash_attn_fwd.cu",
            "replaces": "horovod_tpu/ops/pallas_attention.py:40",
            "launches": None, "max_abs_err": errors["gpt2_small"],
-           "ms": ms, "plain_ms": plain_ms,
+           "ms": ms, "earlier_ms": earlier_ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": library_ms}
-    emit("kernels", max_abs_err=errors, shape=[BATCH, SEQ, heads, d],
-         dtype="bfloat16", causal=True, ms=ms, plain_ms=plain_ms,
-         sdpa_ms=library_ms, bytes=nbytes, flops=flops,
+    emit("kernels", max_abs_err=errors, body=bodies,
+         shape=[BATCH, SEQ, heads, d], dtype="bfloat16", causal=True,
+         order=order, runs_ms=runs, wgmma_ms=ms, mma_ms=earlier_ms,
+         sdpa_ms=library_ms, plain_ms=plain_ms,
+         host_us_per_call=host_us, bytes=nbytes, flops=flops,
          bound_ms=row["bound_ms"], bound_by=row["bound_by"])
     return row
 
@@ -165,7 +255,8 @@ def phase_model_parity():
 
 def phase_train() -> int:
     """The main path: a Horovod training script trains GPT-2 small with
-    the flash kernel through hvd.torch.  Returns the kernel's launches."""
+    the flash kernel through hvd.torch.  Returns the wgmma body's
+    launches."""
     hvd.init()
     assert hvd.size() == 1
     cfg = gpt.gpt2_small_config(attention_impl="flash", dropout=0.0)
@@ -182,6 +273,7 @@ def phase_train() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches = 0
+    fa.launches_by_body.update({body: 0 for body in fa.launches_by_body})
     losses, step_ms = [], []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -194,7 +286,8 @@ def phase_train() -> int:
         losses.append(loss.item())
     grads = [p.grad for p in model.parameters()]
     reduced = hvd.grouped_allreduce(grads, op=hvd.Average)
-    launches = fa.launches
+    launches = fa.launches_by_body[fa.BODY_WGMMA]
+    by_body = dict(fa.launches_by_body)
     peak = torch.cuda.max_memory_allocated()
     hvd.shutdown()
 
@@ -202,13 +295,15 @@ def phase_train() -> int:
     assert losses[-1] < losses[0], losses
     assert all(r.is_cuda and torch.equal(r, gr)
                for r, gr in zip(reduced, grads))
-    assert launches >= cfg.num_layers * STEPS, launches
+    assert launches >= cfg.num_layers * STEPS, by_body
     median_step = statistics.median(step_ms[1:])
     emit("train", config="gpt2_small bf16 flash", batch=BATCH, seq=SEQ,
          steps=STEPS, losses=losses, step_ms=step_ms,
          median_step_ms=median_step,
          tokens_per_s=BATCH * SEQ / (median_step / 1e3),
-         max_memory_allocated=peak, flash_launches=launches)
+         max_memory_allocated=peak, flash_launches=fa.launches,
+         flash_launches_by_body={fa.BODY_NAMES[b]: n
+                                 for b, n in by_body.items()})
     return launches
 
 

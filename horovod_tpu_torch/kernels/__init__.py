@@ -7,6 +7,10 @@ source and flags, so a rebuild happens only when either changes; the
 shared library is then opened with :mod:`ctypes`.  No PyTorch header is
 compiled, which keeps a build to seconds.
 
+:func:`build_report` reads what was built: per kernel, the registers
+and spill bytes from the ``-Xptxas -v`` log and counts of chosen SASS
+instructions from ``cuobjdump -sass``.
+
 Nothing here runs at import time: the CPU tests import every module, and
 this machine may have no ``nvcc``.
 """
@@ -14,10 +18,12 @@ this machine may have no ``nvcc``.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
+from typing import Dict, Sequence, Tuple
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "build")
@@ -48,10 +54,15 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
+def log_path(source: str) -> str:
+    """The compiler's output for the library ``load`` built."""
+    return os.path.splitext(library_path(source))[0] + ".log"
+
+
 def load(source: str) -> ctypes.CDLL:
     """Compile ``source`` (a file in this directory) if its library is
     not built yet, and return the loaded library.  Raises on any build
-    failure; the compiler's output is kept in ``build/<stem>.log``."""
+    failure; the compiler's output is kept in :func:`log_path`."""
     with _lock:
         if source in _loaded:
             return _loaded[source]
@@ -64,9 +75,7 @@ def load(source: str) -> ctypes.CDLL:
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
             build_seconds[source] = time.perf_counter() - t0
-            log = os.path.join(BUILD_DIR,
-                               os.path.splitext(source)[0] + ".log")
-            with open(log, "w") as f:
+            with open(log_path(source), "w") as f:
                 f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
             if proc.returncode != 0:
                 raise RuntimeError(
@@ -77,3 +86,69 @@ def load(source: str) -> ctypes.CDLL:
             build_seconds.setdefault(source, 0.0)
         _loaded[source] = ctypes.CDLL(lib_path)
         return _loaded[source]
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_ptxas_log(text: str) -> Tuple[Dict[str, dict], list]:
+    """Per kernel (mangled name): registers and spill bytes, from an
+    ``-Xptxas -v`` log; and every warning line of the log."""
+    kernels, current = {}, None
+    for line in text.splitlines():
+        entry = _PTXAS_ENTRY.search(line)
+        if entry:
+            current = kernels.setdefault(entry.group(1), {})
+            continue
+        if current is None:
+            continue
+        spill = _PTXAS_SPILL.search(line)
+        if spill:
+            current["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        regs = _PTXAS_REGS.search(line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+    warnings = [ln.strip() for ln in text.splitlines() if "warning" in ln]
+    return kernels, warnings
+
+
+def count_sass(text: str, mnemonics: Sequence[str]) -> Dict[str, dict]:
+    """Per kernel (mangled name): how many SASS instructions of
+    ``cuobjdump -sass`` output start with each mnemonic."""
+    counts, current = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            current = counts.setdefault(line.split("Function : ")[1].strip(),
+                                        {m: 0 for m in mnemonics})
+            continue
+        if current is None or "*/" not in line:
+            continue
+        # "/*0040*/   @P0 HGMMA.64x128x16.F32.BF16 ... ;  /* 0x... */"
+        instr = line.split("*/", 1)[1].strip().split(";")[0].split()
+        if instr and instr[0].startswith("@"):
+            instr = instr[1:]
+        if instr:
+            for m in mnemonics:
+                if instr[0].split(".")[0] == m:
+                    current[m] += 1
+    return counts
+
+
+def build_report(source: str,
+                 mnemonics: Sequence[str] = ("HGMMA", "UTMALDG", "SYNCS")
+                 ) -> Tuple[Dict[str, dict], list]:
+    """What the built ``source`` holds, per kernel: registers and spill
+    bytes from its ptxas log, and counts of ``mnemonics`` in its SASS.
+    Returns that and the log's warning lines.  Builds if needed."""
+    load(source)
+    with open(log_path(source)) as f:
+        per_kernel, warnings = parse_ptxas_log(f.read())
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library_path(source)],
+                          capture_output=True, text=True, check=True).stdout
+    for name, counts in count_sass(sass, mnemonics).items():
+        per_kernel.setdefault(name, {}).update(counts)
+    return per_kernel, warnings

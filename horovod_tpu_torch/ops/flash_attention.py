@@ -2,12 +2,17 @@
 PyTorch version.
 
 Counterpart of :mod:`horovod_tpu.ops.pallas_attention`.  The forward on
-a CUDA tensor is the kernel in ``kernels/flash_attn_fwd.cu`` (one CTA
-per (batch*head, 64-row query tile), online softmax over kv tiles in
+a CUDA tensor is the kernel in ``kernels/flash_attn_fwd.cu`` (one unit
+of work per (batch*head, query tile), online softmax over kv tiles in
 registers); on a CPU tensor it is :func:`flash_attention_reference`, a
 blockwise emulation of the same grid order and masking.  The dispatch
 follows the tensor's device only: a CUDA tensor launches the kernel or
-raises, it never falls back to the plain version.
+raises, it never falls back to the plain version or to another body.
+
+The kernel has three bodies, picked by :func:`_body_for`: fp32 inputs
+run the scalar fp32 body; bf16/fp16 with head dim 64 or 128 run the
+Hopper body (TMA + wgmma, 128 x 128 tiles); other 16-bit head dims run
+the mma.sync body (64 x 64 tiles).
 
 The backward recomputes attention in plain torch, exactly as
 ``_flash_vjp_bwd`` recomputes it in plain XLA (exact, O(S^2) memory).
@@ -22,28 +27,59 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+BODY_FP32, BODY_MMA, BODY_WGMMA = 0, 1, 2
+BODY_NAMES = {BODY_FP32: "fp32 scalar", BODY_MMA: "mma.sync",
+              BODY_WGMMA: "wgmma"}
+WGMMA_HEAD_DIMS = (64, 128)
+_ERRORS = {-1: "the body does not take this dtype and head dim",
+           -2: "cuTensorMapEncodeTiled refused a TMA tensor map"}
+# The C entry's answer when the output was complete without a kernel (it
+# is empty, or there is no key and it was zeroed): nothing is counted.
+_NO_LAUNCH = -3
 
-# Kernel launches since the last reset; bumped by the CUDA path only.
+# Kernel launches since the last reset, in total and per body; bumped by
+# the CUDA path only.
 launches = 0
+launches_by_body = {BODY_FP32: 0, BODY_MMA: 0, BODY_WGMMA: 0}
+
+_entry = None
+
+
+def _body_for(dtype: torch.dtype, head_dim: int) -> int:
+    """The kernel body a CUDA call with this dtype and head dim runs."""
+    if dtype == torch.float32:
+        return BODY_FP32
+    if head_dim in WGMMA_HEAD_DIMS:
+        return BODY_WGMMA
+    return BODY_MMA
 
 
 def _kernel_lib():
+    """The kernel library and its C entry, argument types set once per
+    loaded library."""
+    global _entry
     from .. import kernels
     lib = kernels.load("flash_attn_fwd.cu")
-    fn = lib.hvd_flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.hvd_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    if _entry is None or _entry[0] is not lib:
+        fn = lib.hvd_flash_attn_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.hvd_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.hvd_cuda_error_string.restype = ctypes.c_char_p
+        _entry = (lib, fn)
+    return _entry
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         scale: float, causal: bool) -> torch.Tensor:
+                         scale: float, causal: bool,
+                         body: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA kernel on ``[BH, S, D]`` tensors; returns
-    ``[BH, Sq, D]`` in ``q.dtype``.  The kernel's tile is fixed at 64 x 64,
-    whatever blocks the caller asked the plain version for."""
+    ``[BH, Sq, D]`` in ``q.dtype``.  ``body`` defaults to
+    ``_body_for(dtype, D)``; naming another one (as ``chip_smoke.py``
+    does to time the mma.sync body) runs that body or raises.  The
+    kernel's tile is fixed by the body, whatever blocks the caller
+    asked the plain version for."""
     global launches
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -66,23 +102,33 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_attention: dtype {q.dtype} is not one of "
                          f"{tuple(_DTYPE_CODES)}")
-    # The kernel reads rows as 16-byte vectors; a fresh allocation is
-    # aligned, a view at an odd offset may not be.
+    if body is None:
+        body = _body_for(q.dtype, D)
+    elif body not in BODY_NAMES:
+        raise ValueError(f"flash_attention_cuda: body {body} is not one of "
+                         f"{tuple(BODY_NAMES)}")
+    # The kernel reads rows as 16-byte vectors (TMA wants 16-byte-aligned
+    # bases); a fresh allocation is aligned, a view at an odd offset may
+    # not be.
     q, k, v = (t.contiguous() for t in (q, k, v))
     q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = _kernel_lib()
+    lib, fn = _kernel_lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.hvd_flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            BH, Sq, Skv, D, _DTYPE_CODES[q.dtype], float(scale),
-            int(bool(causal)), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 BH, Sq, Skv, D, _DTYPE_CODES[q.dtype], body, float(scale),
+                 int(bool(causal)), stream)
+    if err == _NO_LAUNCH:
+        return out
     if err != 0:
         msg = (lib.hvd_cuda_error_string(err).decode() if err > 0
-               else "unsupported head dim or dtype")
-        raise RuntimeError(f"flash attention kernel launch failed: {msg}")
+               else _ERRORS.get(err, f"error {err}"))
+        raise RuntimeError(f"flash attention kernel launch failed "
+                           f"({BODY_NAMES[body]} body, {q.dtype}, head dim "
+                           f"{D}): {msg}")
     launches += 1
+    launches_by_body[body] += 1
     return out
 
 

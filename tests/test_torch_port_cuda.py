@@ -31,6 +31,12 @@ def cuda():
     return torch.device("cuda")
 
 
+def _qkv(device, bh, sq, skv, d, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(bh, s, d, device=device, generator=g).to(dtype)
+                 for s in (sq, skv, skv))
+
+
 # bf16/fp16 at 3e-2: the kernel rounds P to the input type before P.V.
 # fp32 at 1e-4: both sides accumulate in fp32, in another order.
 @pytest.mark.parametrize("bh,sq,skv,d,dtype,causal,tol", [
@@ -40,19 +46,67 @@ def cuda():
     (2, 130, 77, 32, torch.float16, False, 3e-2),
     (2, 200, 200, 128, torch.float32, True, 1e-4),
     (2, 100, 60, 128, torch.bfloat16, True, 3e-2),
+    (4, 1000, 1000, 64, torch.bfloat16, False, 3e-2),
+    (2, 1000, 777, 128, torch.float16, True, 3e-2),
+    (1, 129, 129, 64, torch.bfloat16, True, 3e-2),
+    (3, 64, 300, 128, torch.bfloat16, False, 3e-2),
+    (2, 200, 1000, 64, torch.float16, True, 3e-2),
 ])
 def test_cuda_kernel_matches_plain(cuda, bh, sq, skv, d, dtype, causal,
                                    tol):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(bh, sq, d, device=cuda, generator=g).to(dtype)
-    k = torch.randn(bh, skv, d, device=cuda, generator=g).to(dtype)
-    v = torch.randn(bh, skv, d, device=cuda, generator=g).to(dtype)
-    before = fa.launches
+    q, k, v = _qkv(cuda, bh, sq, skv, d, dtype)
+    body = fa._body_for(dtype, d)
+    before, before_body = fa.launches, dict(fa.launches_by_body)
     got = fa.flash_attention_cuda(q, k, v, d ** -0.5, causal)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    assert fa.launches_by_body == {
+        b: n + (b == body) for b, n in before_body.items()}
     ref = fa.flash_attention_reference(q, k, v, d ** -0.5, causal)
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_wgmma_and_mma_bodies_agree_at_gpt_shape(cuda):
+    q, k, v = _qkv(cuda, 96, 1024, 1024, 64, torch.bfloat16)
+    wg = fa.flash_attention_cuda(q, k, v, 0.125, True, body=fa.BODY_WGMMA)
+    mma = fa.flash_attention_cuda(q, k, v, 0.125, True, body=fa.BODY_MMA)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(wg.float(), mma.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_body_with_a_negative_scale(cuda, causal):
+    # A negative scale sends every tile through the masked path.
+    q, k, v = _qkv(cuda, 2, 300, 260, 64, torch.bfloat16)
+    got = fa.flash_attention_cuda(q, k, v, -0.2, causal)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_reference(q, k, v, -0.2, causal)
+    torch.testing.assert_close(got.float(), ref.float(), atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,dtype", [
+    (2, 100, 0, 64, torch.bfloat16),
+    (0, 100, 100, 64, torch.bfloat16),
+    (2, 0, 100, 128, torch.float16),
+    (0, 40, 72, 16, torch.float32),
+])
+def test_work_without_a_kernel_counts_no_launch(cuda, bh, sq, skv, d, dtype):
+    # No key (every row's l is 0, so the output is 0) or an empty output:
+    # the output is complete without a kernel, and no launch is counted.
+    q, k, v = _qkv(cuda, bh, sq, skv, d, dtype)
+    before, before_body = fa.launches, dict(fa.launches_by_body)
+    got = fa.flash_attention_cuda(q, k, v, d ** -0.5, True)
+    torch.cuda.synchronize()
+    assert fa.launches == before and fa.launches_by_body == before_body
+    assert got.shape == (bh, sq, d) and not got.any()
+
+
+def test_body_that_does_not_take_the_input_raises(cuda):
+    q, k, v = _qkv(cuda, 1, 8, 8, 32, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="wgmma body"):
+        fa.flash_attention_cuda(q, k, v, 0.25, True, body=fa.BODY_WGMMA)
 
 
 def test_tiny_gpt_flash_matches_einsum_on_card(cuda):

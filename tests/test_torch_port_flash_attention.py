@@ -100,3 +100,40 @@ def test_kernel_wrapper_refuses_cpu_tensors(no_kernel):
     x = torch.zeros(2, 8, 16)
     with pytest.raises(ValueError, match="not a CUDA device"):
         fa.flash_attention_cuda(x, x, x, 0.25, True)
+
+
+@pytest.mark.parametrize("sq,skv", [(300, 300), (130, 257)])
+def test_wgmma_tile_blocks_match_pallas_at_ragged_causal_lengths(no_kernel,
+                                                                 sq, skv):
+    # 128 x 128 is the wgmma body's tile; the plain version at those
+    # blocks is what the card holds that body against.
+    rng = np.random.RandomState(2)
+    q = rng.randn(1, sq, H, D).astype(np.float32)
+    k = rng.randn(1, skv, H, D).astype(np.float32)
+    v = rng.randn(1, skv, H, D).astype(np.float32)
+    got, ref = _both(q, k, v, causal=True, block_q=128, block_k=128)
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,head_dim,body", [
+    (torch.float32, 16, fa.BODY_FP32),
+    (torch.float32, 64, fa.BODY_FP32),
+    (torch.float32, 128, fa.BODY_FP32),
+    (torch.bfloat16, 16, fa.BODY_MMA),
+    (torch.float16, 32, fa.BODY_MMA),
+    (torch.bfloat16, 64, fa.BODY_WGMMA),
+    (torch.float16, 64, fa.BODY_WGMMA),
+    (torch.bfloat16, 128, fa.BODY_WGMMA),
+    (torch.float16, 128, fa.BODY_WGMMA),
+])
+def test_body_for_picks_the_kernel_body(dtype, head_dim, body):
+    assert fa._body_for(dtype, head_dim) == body
+
+
+def test_cpu_tensors_never_count_kernel_launches(qkv, no_kernel):
+    before, before_body = fa.launches, dict(fa.launches_by_body)
+    for dtype in (torch.float32, torch.bfloat16):
+        tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in qkv)
+        fa.flash_attention(tq, tk, tv, causal=True)
+    assert fa.launches == before
+    assert fa.launches_by_body == before_body
