@@ -5,16 +5,19 @@ common/basics.py:22-258 backed by the extern "C" query API in
 operations.cc:708-896): one process-wide runtime whose data plane is
 PyTorch on the tensors' own device.
 
-This slice of the port runs a world of one process (the reference's
-``SingleProcessBackend`` + ``LoopbackController`` path).  The multi-rank
-control and data plane (``controller_net``, ``relay``, the NCCL/gloo
-backend, the runner) is the port's slice 2; ``init()`` with a world
-larger than one raises ``NotImplementedError`` until then.
+A world of one process runs the reference's ``SingleProcessBackend`` +
+``LoopbackController`` path.  A larger world (the launcher's env
+contract: ``HOROVOD_RANK``/``HOROVOD_SIZE``/... plus
+``HOROVOD_TPU_COORDINATOR`` and ``HOROVOD_CONTROLLER_ADDR``) joins one
+``torch.distributed`` process group at ``tcp://$HOROVOD_TPU_COORDINATOR``
+that carries CPU tensors over gloo and CUDA tensors over NCCL, or over
+gloo when local ranks share a card (``ops/dist_ops.py``), and negotiates
+through ``controller_net``.  Elastic rendezvous is not ported yet.
 """
 
 import atexit
+import datetime
 import logging
-import os
 import threading
 from typing import List, Optional, Sequence
 
@@ -87,6 +90,10 @@ class HorovodTpuState:
         # contract, process_set.h).
         self.next_process_set_id = 1  # 0 = global
         self.backend = None          # ops data-plane backend
+        # How CUDA tensors cross ranks ("nccl" or "gloo"), decided once
+        # at init; None in a world of one.
+        self.transport: Optional[str] = None
+        self.process_group_owned = False
         self.runtime = None          # background negotiation runtime
         self.timeline = None
         self.metrics_server = None   # /metrics HTTP endpoint (opt-in)
@@ -114,9 +121,42 @@ def _state() -> HorovodTpuState:
 
 def _require_single_process(what: str):
     raise NotImplementedError(
-        f"horovod_tpu_torch: {what} needs the multi-rank data plane "
-        "(controller_net, relay, NCCL/gloo backend, runner), which is "
-        "slice 2 of the port; this slice runs a world of size 1")
+        f"horovod_tpu_torch: {what} needs the runner (runner/, "
+        "runner/elastic/), which is not ported yet")
+
+
+def _init_process_group(state: HorovodTpuState) -> bool:
+    """Join the world's ``torch.distributed`` process group, where the
+    JAX package joins ``jax.distributed``: address
+    ``tcp://$HOROVOD_TPU_COORDINATOR``, world size and rank from the env
+    contract.  Picks this rank's card and the transport of CUDA tensors
+    (``dist_ops.cuda_transport``) and logs it.  Returns whether this call
+    made the group (a group the caller made stays the caller's)."""
+    import torch
+    import torch.distributed as dist
+    from ..ops.dist_ops import cuda_transport, process_group_backend
+    info = state.rank_info
+    state.transport = cuda_transport(info.local_size)
+    if torch.cuda.is_available():
+        torch.cuda.set_device(info.local_rank % torch.cuda.device_count())
+    if dist.is_initialized():
+        return False
+    coordinator = env_mod.env_str_opt(env_mod.HOROVOD_TPU_COORDINATOR)
+    if coordinator is None:
+        raise RuntimeError(
+            f"{env_mod.HOROVOD_TPU_COORDINATOR} must name host:port of the "
+            "process group's store for multi-process runs (the launcher "
+            "sets it)")
+    dist.init_process_group(
+        process_group_backend(state.transport),
+        init_method=f"tcp://{coordinator}", world_size=info.size,
+        rank=info.rank,
+        timeout=datetime.timedelta(seconds=env_mod.start_timeout()))
+    logger.info("rank %d of %d: CUDA tensors cross ranks over %s "
+                "(local_size %d, %d card(s) visible)", info.rank, info.size,
+                state.transport, info.local_size,
+                torch.cuda.device_count())
+    return True
 
 
 def init(comm=None, process_sets=None):
@@ -162,8 +202,7 @@ def init(comm=None, process_sets=None):
                     state.rank_info.size = len(ranks)
 
         if state.rank_info.size > 1:
-            _require_single_process(
-                f"a world of size {state.rank_info.size}")
+            state.process_group_owned = _init_process_group(state)
 
         # Failpoint rank= predicates resolve against the final rank of
         # this incarnation (elastic rendezvous above may have changed
@@ -263,6 +302,11 @@ def shutdown():
             state.runtime = None
         state.tune_session = None
         state.parameter_manager = None
+        if state.process_group_owned:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+            state.process_group_owned = False
+        state.transport = None
         state.initialized = False
 
 
@@ -349,7 +393,8 @@ def gloo_enabled() -> bool:
 
 
 def nccl_built() -> bool:
-    return False
+    import torch.distributed as dist
+    return dist.is_nccl_available()
 
 
 def ccl_built() -> bool:

@@ -8,11 +8,21 @@ fused responses on the data-plane backend, and fires completion
 callbacks.
 
 Counterpart of :mod:`horovod_tpu.common.runtime`.  Entries carry torch
-tensors, which stay on their own device; this slice negotiates through
-the ``LoopbackController`` only (a world of one process).
+tensors, which stay on their own device.  A world of one process
+negotiates through the ``LoopbackController``, a larger one through the
+``NetworkController`` (``controller_net``).
+
+CUDA ordering (the reference's ``torch/ready_event.{h,cc}``): ``submit``
+records an event on the caller's current stream; the data plane runs
+each response on a stream of the runtime's own, made to wait on those
+events, and records a done event there that ``Handle.wait`` makes the
+waiter's stream wait on.  Every tensor the runtime's stream touches is
+marked with ``record_stream``, so the caching allocator does not hand
+its memory out while that stream may still read it.
 """
 # hvdlint-module: hot-path (instrumentation must hide behind one attribute check — docs/static_analysis.md)
 
+import contextlib
 import itertools
 import logging
 import threading
@@ -53,6 +63,14 @@ _JOIN_ZEROS = metrics.counter(
     "hvd_join_zero_substituted_total",
     "Zero tensors substituted for collectives this joined rank "
     "did not submit")
+
+
+def _ready_event(device: torch.device) -> "torch.cuda.Event":
+    """An event on the current stream of ``device``: work enqueued there
+    so far (the tensor's producer) happens before it."""
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
 
 def _latency_wrapped(cb, collector=None):
@@ -173,6 +191,8 @@ class BackgroundRuntime:
         # Device of this rank's latest submission: where a joined rank
         # builds the zeros it substitutes.
         self._device = torch.device("cpu")
+        # The data plane's own CUDA stream, one per device.
+        self._streams: Dict[torch.device, torch.cuda.Stream] = {}
         self._error: Optional[Exception] = None
         # Called once when a fatal control-plane error surfaces (e.g.
         # coordinator connection lost in an elastic resize): lets
@@ -230,9 +250,8 @@ class BackgroundRuntime:
     def _make_controller(self):
         if self.state.rank_info.size == 1:
             return LoopbackController(self.state)
-        raise NotImplementedError(
-            "horovod_tpu_torch: the networked controller (controller_net) "
-            "is slice 2 of the port; this slice runs a world of size 1")
+        from .controller_net import NetworkController
+        return NetworkController(self.state)
 
     # ------------------------------------------------------------------
     # submission API (called from user/framework threads)
@@ -262,6 +281,8 @@ class BackgroundRuntime:
                            request.tensor_name)] = nelem
         if entry.tensor is not None:
             self._device = entry.tensor.device
+            if entry.tensor.is_cuda:
+                entry.ready_event = _ready_event(entry.tensor.device)
         replay = self.replay
         if replay is not None and not self._joined:
             if replay.active and replay.eligible(request):
@@ -341,6 +362,9 @@ class BackgroundRuntime:
         for entry in entries:
             entry.callback = _latency_wrapped(entry.callback,
                                               self.phase_collector)
+            if entry.tensor is not None and entry.tensor.is_cuda:
+                self._device = entry.tensor.device
+                entry.ready_event = _ready_event(entry.tensor.device)
         for request in requests:
             request.group_id = group_id
             nelem = 1
@@ -563,6 +587,8 @@ class BackgroundRuntime:
                 e = TensorTableEntry(tensor_name=name, tensor=zero,
                                      callback=lambda ok, r: None,
                                      process_set_id=resp.process_set_id)
+                if zero.is_cuda:
+                    e.ready_event = _ready_event(zero.device)
                 _JOIN_ZEROS.inc()
             if e is not None:
                 entries.append(e)
@@ -598,43 +624,13 @@ class BackgroundRuntime:
             if self.timeline:
                 self.timeline.start_activity(
                     tl_name, f"TORCH_{resp.response_type.name}")
-            if resp.response_type in (ResponseType.ALLREDUCE,):
-                arrays = [e.tensor for e in entries]
-                results = backend.allreduce(
-                    arrays, resp.reduce_op, resp.prescale_factor,
-                    resp.postscale_factor, ps_ranks)
-            elif resp.response_type == ResponseType.ADASUM:
-                arrays = [e.tensor for e in entries]
-                results = backend.adasum_allreduce(
-                    arrays, resp.prescale_factor, resp.postscale_factor,
-                    ps_ranks)
-            elif resp.response_type == ResponseType.ALLGATHER:
-                results = backend.allgather(
-                    [e.tensor for e in entries], resp.tensor_sizes,
-                    ps_ranks)
-            elif resp.response_type == ResponseType.BROADCAST:
-                results = backend.broadcast(
-                    [e.tensor for e in entries], resp.root_rank,
-                    ps_ranks)
-            elif resp.response_type == ResponseType.ALLTOALL:
-                # tensor_sizes carries the coordinator-assembled
-                # group×group send-split matrix (one alltoall per
-                # response — the type is never fused), so the backend
-                # skips its own split-exchange collective.
-                results = []
-                matrix = resp.tensor_sizes or None
-                for e in entries:
-                    out, recv_splits = backend.alltoall(
-                        e.tensor, e.splits, ps_ranks,
-                        split_matrix=matrix)
-                    results.append((out, recv_splits))
-            elif resp.response_type == ResponseType.REDUCESCATTER:
-                results = backend.reducescatter(
-                    [e.tensor for e in entries], resp.reduce_op,
-                    ps_ranks)
-            else:
-                raise RuntimeError(
-                    f"Unknown response type {resp.response_type}")
+            with self._data_stream(entries) as stream:
+                results = self._execute(backend, resp, entries, ps_ranks)
+                if stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                    for e in entries:
+                        e.done_event = done
             if self.timeline:
                 self.timeline.end_activity(tl_name)
         except Exception as err:
@@ -659,3 +655,66 @@ class BackgroundRuntime:
                 tr.note_op(len(entries))
         for e, result in zip(entries, results):
             e.callback(True, result)
+
+    @contextlib.contextmanager
+    def _data_stream(self, entries: List[TensorTableEntry]):
+        """Run the response on this runtime's stream of the entries' CUDA
+        device, after their ready events; yields None for CPU tensors."""
+        dev = next((e.tensor.device for e in entries
+                    if e.tensor is not None and e.tensor.is_cuda), None)
+        if dev is None:
+            yield None
+            return
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(device=dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            for e in entries:
+                if e.ready_event is not None:
+                    stream.wait_event(e.ready_event)
+                if e.tensor is not None and e.tensor.is_cuda:
+                    e.tensor.record_stream(stream)
+            yield stream
+
+    @staticmethod
+    def _execute(backend, resp: Response,
+                 entries: List[TensorTableEntry], ps_ranks):
+        """The backend call of one response: its results, one per entry."""
+        if resp.response_type in (ResponseType.ALLREDUCE,):
+            arrays = [e.tensor for e in entries]
+            results = backend.allreduce(
+                arrays, resp.reduce_op, resp.prescale_factor,
+                resp.postscale_factor, ps_ranks)
+        elif resp.response_type == ResponseType.ADASUM:
+            arrays = [e.tensor for e in entries]
+            results = backend.adasum_allreduce(
+                arrays, resp.prescale_factor, resp.postscale_factor,
+                ps_ranks)
+        elif resp.response_type == ResponseType.ALLGATHER:
+            results = backend.allgather(
+                [e.tensor for e in entries], resp.tensor_sizes,
+                ps_ranks)
+        elif resp.response_type == ResponseType.BROADCAST:
+            results = backend.broadcast(
+                [e.tensor for e in entries], resp.root_rank,
+                ps_ranks)
+        elif resp.response_type == ResponseType.ALLTOALL:
+            # tensor_sizes carries the coordinator-assembled
+            # group×group send-split matrix (one alltoall per
+            # response — the type is never fused), so the backend
+            # skips its own split-exchange collective.
+            results = []
+            matrix = resp.tensor_sizes or None
+            for e in entries:
+                out, recv_splits = backend.alltoall(
+                    e.tensor, e.splits, ps_ranks,
+                    split_matrix=matrix)
+                results.append((out, recv_splits))
+        elif resp.response_type == ResponseType.REDUCESCATTER:
+            results = backend.reducescatter(
+                [e.tensor for e in entries], resp.reduce_op,
+                ps_ranks)
+        else:
+            raise RuntimeError(
+                f"Unknown response type {resp.response_type}")
+        return results

@@ -19,7 +19,7 @@ from .message import Request
 @dataclass
 class TensorTableEntry:
     tensor_name: str
-    tensor: Any                       # payload (jax/numpy array)
+    tensor: Any                       # payload (torch tensor)
     callback: Callable                # fn(status_ok, result_or_error)
     root_rank: int = -1
     device: int = 0
@@ -27,6 +27,11 @@ class TensorTableEntry:
     # Optional second payload (e.g. alltoall splits).
     splits: Any = None
     context: dict = field(default_factory=dict)
+    # CUDA ordering: recorded on the submitter's stream at submit (the
+    # data plane's stream waits on it), and on the data plane's stream
+    # once the result is written (the waiter's stream waits on it).
+    ready_event: Any = None
+    done_event: Any = None
 
 
 class SHUT_DOWN_ERROR(RuntimeError):

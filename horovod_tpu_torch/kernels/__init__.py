@@ -30,7 +30,8 @@ BUILD_DIR = os.path.join(KERNEL_DIR, "build")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()       # guards _source_locks
+_source_locks = {}             # one per source: builds run in parallel
 _loaded = {}
 build_seconds = {}
 
@@ -62,8 +63,11 @@ def log_path(source: str) -> str:
 def load(source: str) -> ctypes.CDLL:
     """Compile ``source`` (a file in this directory) if its library is
     not built yet, and return the loaded library.  Raises on any build
-    failure; the compiler's output is kept in :func:`log_path`."""
+    failure; the compiler's output is kept in :func:`log_path`.  Calls
+    for different sources may run at once, each its own ``nvcc``."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         if source in _loaded:
             return _loaded[source]
         lib_path = library_path(source)

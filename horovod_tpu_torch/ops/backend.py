@@ -6,9 +6,9 @@ ops/nccl_operations.cc, ops/mpi_operations.cc, ops/gloo_operations.cc).
 Counterpart of :mod:`horovod_tpu.ops.backend`; every array is a torch
 tensor, and results stay on the device their inputs came in on.
 
-This slice has the ``SingleProcessBackend`` (a world of one rank).  The
-NCCL/gloo backend for larger worlds (the counterpart of ``xla_ops.py``
-and ``ring_ops.py``) is slice 2 of the port.
+A world of one rank runs the ``SingleProcessBackend``; a larger one the
+``TorchDistBackend`` of ``dist_ops.py`` (NCCL or gloo, the counterpart
+of ``xla_ops.py`` and ``ring_ops.py``).
 """
 
 from typing import Any, List, Tuple
@@ -119,6 +119,5 @@ class SingleProcessBackend(Backend):
 def create_backend(state) -> Backend:
     if state.rank_info.size == 1:
         return SingleProcessBackend()
-    raise NotImplementedError(
-        "horovod_tpu_torch: the NCCL/gloo backend for a world of size > 1 "
-        "is slice 2 of the port")
+    from .dist_ops import TorchDistBackend
+    return TorchDistBackend(state, state.transport)

@@ -11,7 +11,10 @@ reference uses so pre/post scaling composes correctly
 (reference: tensorflow/__init__.py:337-344, operations.cc:941-948).
 
 Counterpart of :mod:`horovod_tpu.ops.eager`: torch tensors pass through
-untouched and results come back on the input's device.
+untouched and results come back on the input's device.  A CUDA result
+arrives with the event the data plane recorded after writing it;
+``Handle.wait`` makes the waiting thread's current stream wait on that
+event (the host does not block on the device).
 """
 
 import itertools
@@ -34,7 +37,7 @@ _name_counter = itertools.count()
 class Handle:
     """Future for an in-flight collective."""
 
-    __slots__ = ("_event", "ok", "result", "error", "name")
+    __slots__ = ("_event", "ok", "result", "error", "name", "_done")
 
     def __init__(self, name: str = ""):
         self._event = threading.Event()
@@ -42,14 +45,28 @@ class Handle:
         self.result = None
         self.error: Optional[Exception] = None
         self.name = name
+        self._done = None
 
-    def _complete(self, ok: bool, result_or_error):
+    def _complete(self, ok: bool, result_or_error, done_event=None):
         self.ok = ok
         if ok:
             self.result = result_or_error
+            self._done = done_event
         else:
             self.error = result_or_error
         self._event.set()
+
+    def _order_after_device_result(self):
+        """The current stream waits on the data plane's done event, and
+        the result's memory is marked as used by that stream."""
+        done, self._done = self._done, None
+        result = self.result
+        tensors = result if isinstance(result, tuple) else (result,)
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                stream = torch.cuda.current_stream(t.device)
+                stream.wait_event(done)
+                t.record_stream(stream)
 
     def done(self) -> bool:
         return self._event.is_set()
@@ -64,6 +81,8 @@ class Handle:
                     err, (ValueError, TypeError)):
                 raise HorovodInternalError(str(err)) from err
             raise err
+        if self._done is not None:
+            self._order_after_device_result()
         return self.result
 
 
@@ -90,6 +109,15 @@ def _resolve_op(op: Optional[str], average: Optional[bool]):
     if op is None:
         op = Average if (average is None or average) else Sum
     return op
+
+
+def _entry(handle: Handle, **fields) -> TensorTableEntry:
+    """A table entry whose completion hands ``handle`` the result and the
+    data plane's done event."""
+    entry = TensorTableEntry(callback=None, **fields)
+    entry.callback = lambda ok, result: handle._complete(
+        ok, result, entry.done_event)
+    return entry
 
 
 def _runtime():
@@ -120,10 +148,9 @@ def _submit(request_type: RequestType, tensor, name: str, *, reduce_op=Sum,
     # single-process worlds return the same type as multi-rank ones.
     if tensor is not None and not hasattr(tensor, "dtype"):
         tensor = torch.from_numpy(np.asarray(tensor))
-    entry = TensorTableEntry(
-        tensor_name=name, tensor=tensor,
-        callback=handle._complete, root_rank=root_rank,
-        process_set_id=process_set.process_set_id, splits=splits)
+    entry = _entry(handle, tensor_name=name, tensor=tensor,
+                   root_rank=root_rank,
+                   process_set_id=process_set.process_set_id, splits=splits)
     shape = tuple(tensor.shape) if tensor is not None else ()
     wire_splits = ()
     if request_type == RequestType.ALLTOALL:
@@ -207,8 +234,8 @@ def grouped_allreduce_async(tensors: Sequence[Any], average=None, name=None,
         tname = f"{base}.{i}"
         h = Handle(tname)
         handles.append(h)
-        entries.append(TensorTableEntry(
-            tensor_name=tname, tensor=t, callback=h._complete,
+        entries.append(_entry(
+            h, tensor_name=tname, tensor=t,
             process_set_id=process_set.process_set_id))
         reqs.append(Request(
             request_rank=basics.rank(), request_type=rtype,

@@ -133,3 +133,120 @@ def test_broken_build_raises_on_cuda_tensors(cuda, tmp_path, monkeypatch):
     x = torch.zeros(1, 8, 16, device=cuda)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fa.flash_attention_cuda(x, x, x, 0.25, True)
+
+
+# ---------------------------------------------------------------------------
+# The fusion pack/unpack kernel (kernels/fusion_buffer.cu): bit-equal to
+# its plain version on the same CUDA tensors.
+# ---------------------------------------------------------------------------
+_FUSION_DTYPES = [torch.uint8, torch.int8, torch.uint16, torch.int16,
+                  torch.int32, torch.int64, torch.float16, torch.float32,
+                  torch.float64, torch.bool, torch.bfloat16]
+
+
+def _fusion_inputs(device, dtype, seed=0):
+    """Tensors of one dtype: ragged lengths, a 0-d and a 0-element
+    tensor, and views one element off a 16-byte boundary."""
+    g = torch.Generator().manual_seed(seed)
+
+    def make(n):
+        if dtype == torch.bool:
+            return torch.randint(0, 2, (n,), generator=g).bool()
+        if dtype.is_floating_point:
+            return torch.randn(n, generator=g).to(dtype)
+        return torch.randint(0, 100, (n,), generator=g).to(dtype)
+
+    base = make(5000).to(device)
+    return [make(1000).to(device).view(10, 100), make(1).to(device)[0],
+            make(0).to(device), base[1:4002], make(37).to(device),
+            base[3:3 + 333].view(3, 111), make(65536 + 3).to(device)]
+
+
+@pytest.mark.parametrize("dtype", _FUSION_DTYPES)
+@pytest.mark.parametrize("factor", [1.0, 0.5, 3.0])
+def test_fusion_kernel_is_bit_equal_to_plain(cuda, dtype, factor):
+    from horovod_tpu_torch.ops import fusion_buffer as fb
+    tensors = _fusion_inputs(cuda, dtype)
+    before, plain = dict(fb.launches), dict(fb.plain_calls)
+    got = fb.pack(tensors, factor)
+    want = fb.pack_plain(tensors, factor)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    outs = [torch.empty(t.shape, dtype=dtype, device=cuda) for t in tensors]
+    refs = [torch.empty(t.shape, dtype=dtype, device=cuda) for t in tensors]
+    fb.unpack(got, outs, factor)
+    fb.unpack_plain(want, refs, factor)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, r) for o, r in zip(outs, refs))
+    assert fb.launches == {"pack": before["pack"] + 1,
+                           "unpack": before["unpack"] + 1}
+    assert fb.plain_calls == plain
+
+
+def test_fusion_kernel_takes_more_tensors_than_one_launch(cuda):
+    from horovod_tpu_torch.ops import fusion_buffer as fb
+    _, _, max_entries = fb._kernel_lib()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    tensors = [torch.randn(i + 1, device=cuda, generator=g)
+               for i in range(2 * max_entries + 5)]
+    before = dict(fb.launches)
+    flat = fb.pack(tensors, 0.25)
+    outs = [torch.empty_like(t) for t in tensors]
+    fb.unpack(flat, outs, 4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(flat, fb.pack_plain(tensors, 0.25))
+    assert all(torch.equal(o, t) for o, t in zip(outs, tensors))
+    assert fb.launches["pack"] - before["pack"] == 3
+    assert fb.launches["unpack"] - before["unpack"] == 3
+
+
+def test_fusion_kernel_refuses_mixed_or_strided_inputs(cuda):
+    from horovod_tpu_torch.ops import fusion_buffer as fb
+    x = torch.ones(4, 4, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.pack([x.t()], 1.0)
+    with pytest.raises(ValueError, match="one dtype and device"):
+        fb.pack([x, x.half()], 1.0)
+
+
+def test_nccl_backend_in_a_world_of_one(cuda):
+    # NCCL takes a one-rank communicator on one card; every collective
+    # of the backend runs once on CUDA tensors.
+    import socket
+    import types
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.common.env import Knobs, RankInfo
+    from horovod_tpu_torch.ops import dist_ops
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group(dist_ops.process_group_backend("nccl"),
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        state = types.SimpleNamespace(rank_info=RankInfo(), knobs=Knobs())
+        be = dist_ops.TorchDistBackend(state, "nccl")
+        assert be.name == "nccl"
+        for check, ok in dist_ops.world1_checks(be, cuda).items():
+            assert ok, check
+    finally:
+        dist.destroy_process_group()
+
+
+def test_runtime_stream_waits_for_the_producer(cuda):
+    # The runtime runs a response on its own stream after the event the
+    # submit recorded on the caller's stream: a producer still queued
+    # behind a long kernel is seen finished.
+    import horovod_tpu_torch.torch as hvd
+    hvd.init()
+    try:
+        x = torch.zeros(1 << 20, device=cuda)
+        torch.cuda._sleep(100_000_000)
+        x.add_(1.0)
+        y = hvd.allreduce(x, op=hvd.Sum, prescale_factor=2.0, name="order")
+        assert y.is_cuda and torch.equal(y, torch.full_like(x, 2.0))
+    finally:
+        hvd.shutdown()

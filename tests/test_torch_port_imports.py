@@ -19,6 +19,10 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import sys\n"
         "import horovod_tpu_torch, horovod_tpu_torch.torch\n"
         "import horovod_tpu_torch.models, horovod_tpu_torch.ops.flash_attention\n"
+        "import horovod_tpu_torch.common.controller_net\n"
+        "import horovod_tpu_torch.common.relay\n"
+        "import horovod_tpu_torch.ops.dist_ops, horovod_tpu_torch.ops.adasum\n"
+        "import horovod_tpu_torch.ops.fusion_buffer\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

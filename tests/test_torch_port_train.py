@@ -140,9 +140,14 @@ def test_objects_round_trip(both):
 
 
 def test_world_larger_than_one_names_slice_two(monkeypatch):
+    # Slice 2 runs worlds larger than one: init joins the process group at
+    # HOROVOD_TPU_COORDINATOR, and without that address it raises rather
+    # than run alone.
     from horovod_tpu_torch.common import basics
     monkeypatch.setenv("HOROVOD_RANK", "0")
     monkeypatch.setenv("HOROVOD_SIZE", "2")
+    monkeypatch.delenv("HOROVOD_TPU_COORDINATOR", raising=False)
     monkeypatch.setattr(basics, "_global_state", basics.HorovodTpuState())
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(RuntimeError, match="HOROVOD_TPU_COORDINATOR"):
         basics.init()
+    assert not basics.is_initialized()
