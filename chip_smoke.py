@@ -13,11 +13,15 @@ limit as nvidia-smi reports them, the per-kernel summary, and
 ``{"ok": true, "device": {...}}``.
 
 The two-rank phase starts two fresh worker processes of this script
-(``--train-worker``) with the launcher's env contract.  Both use the one
-card, so CUDA tensors cross ranks over gloo, staged through host memory
-(NCCL refuses two ranks on one device).
+(``--train-worker``) through the port's launcher,
+``python -m horovod_tpu_torch.runner.launch -np 2 -H localhost:2``.
+Both use the one card, so CUDA tensors cross ranks over gloo, staged
+through host memory (NCCL refuses two ranks on one device).  Each worker
+also reads its own ``/metrics`` endpoint, signed with the job secret and
+unsigned, before it shuts down.
 """
 
+import ast
 import concurrent.futures
 import dataclasses
 import hashlib
@@ -25,14 +29,24 @@ import json
 import math
 import os
 import re
+import signal
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
-import torch
-import torch.nn.functional as F
+# Wall clock at the start of this process, before torch is imported: a
+# launched worker reports it, so that the phase can split its time to
+# the first step into launcher, imports, init and model.
+STARTED = time.time()
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -47,6 +61,7 @@ from horovod_tpu_torch.models import gpt  # noqa: E402
 from horovod_tpu_torch.ops import dist_ops  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from horovod_tpu_torch.ops import fusion_buffer as fb  # noqa: E402
+from horovod_tpu_torch.runner import job_secret  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -621,13 +636,33 @@ def eager_checks(rank: int, size: int, device) -> dict:
     return out
 
 
+def read_metrics(port: int, secret) -> tuple:
+    """(HTTP status, body) of ``GET /metrics`` on this host's ``port``,
+    signed with ``secret`` as the rendezvous client signs, or unsigned
+    when ``secret`` is None."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/metrics")
+    if secret is not None:
+        ts = repr(time.time())
+        req.add_header(job_secret.TS_HEADER, ts)
+        req.add_header(job_secret.HEADER, job_secret.sign(
+            secret, "GET", "/metrics", b"", ts))
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, ""
+
+
 def train_2rank_worker():
-    """One rank of the two-rank phase (``--train-worker``): GPT-2 small at
-    full width through ``hvd.torch.DistributedOptimizer`` (hooks on,
-    bf16 compute, flash attention, AdamW), its own seeded tokens, then
-    the eager collectives on CUDA tensors.  Prints one ``RESULT {...}``
-    line."""
+    """One rank of the two-rank phase (``--train-worker``), started by the
+    launcher: GPT-2 small at full width through
+    ``hvd.torch.DistributedOptimizer`` (hooks on, bf16 compute, flash
+    attention, AdamW), its own seeded tokens, then the eager collectives
+    on CUDA tensors and its own ``/metrics`` (``HOROVOD_METRICS_PORT``),
+    read signed and unsigned.  Prints one ``RESULT {...}`` line."""
+    wall = {"started": STARTED, "init_begin": time.time()}
     hvd.init()
+    wall["init_end"] = time.time()
     rank, size = hvd.rank(), hvd.size()
     backend = basics._state().backend
     cfg = gpt.gpt2_small_config(attention_impl="flash", dropout=0.0)
@@ -659,6 +694,7 @@ def train_2rank_worker():
         return hist.get("sum", 0.0)
 
     data_plane_s0 = data_plane_seconds()
+    wall["model_ready"] = time.time()
     losses, step_ms = [], []
     for _ in range(STEPS_2RANK):
         t0 = time.perf_counter()
@@ -669,6 +705,7 @@ def train_2rank_worker():
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(loss.item())
+        wall.setdefault("first_step_end", time.time())
     counts = {"flash": fa.launches_by_body[fa.BODY_WGMMA],
               "flash_all_bodies": fa.launches,
               "fusion": dict(fb.launches),
@@ -682,50 +719,145 @@ def train_2rank_worker():
         digest.update(p.detach().float().cpu().numpy().tobytes())
     checks = eager_checks(rank, size, torch.device("cuda"))
     transport = backend.name
+    slot = {"rank": rank, "local_rank": hvd.local_rank(),
+            "cross_rank": hvd.cross_rank(),
+            "card": torch.cuda.current_device(),
+            "transport": basics._state().transport}
+    port = basics._state().metrics_server.port
+    signed, text = read_metrics(port, os.environ[job_secret.ENV])
+    unsigned, _ = read_metrics(port, None)
     hvd.shutdown()
     print("RESULT " + json.dumps({
         "rank": rank, "size": size, "backend": transport,
         "losses": losses, "step_ms": step_ms, "counts": counts,
         "data_plane_ms_per_step": data_plane_s / STEPS_2RANK * 1e3,
         "max_memory_allocated": peak, "params_sha256": digest.hexdigest(),
-        "eager": checks}), flush=True)
+        "eager": checks, "slot": slot, "wall": wall,
+        "rendezvous_port": int(os.environ["HOROVOD_GLOO_RENDEZVOUS_PORT"]),
+        "metrics": {"signed": signed, "unsigned": unsigned,
+                    "gloo_series": 'hvd_collective_seconds_count'
+                                   '{backend="gloo"' in text}}),
+          flush=True)
+
+
+def process_tree(pid: int) -> list:
+    """``pid`` and every process descended from it, read from /proc.  The
+    launcher starts each worker in a session of its own, so a signal to
+    the launcher's process group does not reach them."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append(int(entry))
+    tree, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        tree.append(p)
+        todo += children.get(p, [])
+    return tree
+
+
+def kill_tree(pid: int):
+    for p in process_tree(pid):
+        try:
+            os.kill(p, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+_PREFIX = re.compile(r"^\[(\d+)\]<(stdout|stderr)>:")
+
+
+def result_lines(text: str) -> dict:
+    """The workers' ``RESULT {...}`` lines by rank, with the launcher's
+    ``[rank]<stdout>:`` prefix stripped."""
+    results = {}
+    for line in text.splitlines():
+        m = _PREFIX.match(line)
+        if m and m.group(2) == "stdout" and \
+                line[m.end():].startswith("RESULT "):
+            results[int(m.group(1))] = json.loads(line[m.end() + 7:])
+    return results
+
+
+def launch_2rank(log_dir: str) -> dict:
+    """``python -m horovod_tpu_torch.runner.launch -np 2 -H localhost:2``
+    of this script's ``--train-worker``, with ``HOROVOD_METRICS_PORT=0``;
+    the launcher and its workers are killed past ``WORKER_TIMEOUT_S``.
+    Returns the launcher's output, exit codes and host times."""
+    env = dict(os.environ, PYTHONPATH=REPO, HOROVOD_METRICS_PORT="0")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+           "-np", "2", "-H", "localhost:2", "--verbose",
+           "--output-filename", log_dir, sys.executable,
+           os.path.abspath(__file__), "--train-worker"]
+    lines, first_result = [], []
+    wall0, t0 = time.time(), time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+    def pump():
+        for line in proc.stdout:
+            if not first_result and "<stdout>:RESULT " in line:
+                first_result.append(time.perf_counter() - t0)
+            lines.append(line)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        proc.wait(timeout=WORKER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        kill_tree(proc.pid)
+        proc.wait()
+        reader.join(timeout=10)
+        raise RuntimeError(f"train_2rank: the launch took more than "
+                           f"{WORKER_TIMEOUT_S} s:\n"
+                           f"{''.join(lines)[-6000:]}")
+    reader.join(timeout=30)
+    out = "".join(lines)
+    finished = re.search(r"all workers finished in [\d.]+s: (\{.*\})", out)
+    # The launcher's ``--verbose`` log stamps the moment it starts each
+    # rank's command (logging's local-time asctime, to the millisecond).
+    spawned = {}
+    for m in re.finditer(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) \S+ "
+                         r"INFO: launching rank (\d+) on ", out, re.M):
+        spawned[int(m.group(3))] = time.mktime(time.strptime(
+            m.group(1), "%Y-%m-%d %H:%M:%S")) + int(m.group(2)) / 1e3
+    return {"cmd": cmd, "output": out, "returncode": proc.returncode,
+            "rank_codes": ast.literal_eval(finished.group(1))
+            if finished else None, "spawned": spawned,
+            "seconds": time.perf_counter() - t0, "wall0": wall0,
+            "first_result_s": first_result[0] if first_result else None}
 
 
 def phase_train_2rank() -> dict:
-    """The main path at two ranks: two fresh worker processes with the
-    launcher's env contract, both on this card, so the data plane is
-    gloo.  Returns the workers' launch counts."""
-    coord, ctrl = free_port(), free_port()
-    procs = []
-    for rank in range(2):
-        env = dict(os.environ)
-        env.update({
-            "HOROVOD_RANK": str(rank), "HOROVOD_SIZE": "2",
-            "HOROVOD_LOCAL_RANK": str(rank), "HOROVOD_LOCAL_SIZE": "2",
-            "HOROVOD_CROSS_RANK": "0", "HOROVOD_CROSS_SIZE": "1",
-            "HOROVOD_TPU_COORDINATOR": f"127.0.0.1:{coord}",
-            "HOROVOD_CONTROLLER_ADDR": f"127.0.0.1:{ctrl}",
-            "PYTHONPATH": REPO})
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--train-worker"],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    results, outputs = [], []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=WORKER_TIMEOUT_S)
-            outputs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for rank, (p, out) in enumerate(zip(procs, outputs)):
-        if p.returncode != 0:
-            raise RuntimeError(f"train_2rank: rank {rank} exited "
-                               f"{p.returncode}:\n{out[-6000:]}")
-        lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
-        results.append(json.loads(lines[-1][len("RESULT "):]))
+    """The main path at two ranks, started by the port's launcher: two
+    fresh worker processes, both on this card, so the data plane is gloo.
+    Checks what the workers report, their ``/metrics`` under the job
+    secret and the launcher's capture files, emits the ``launcher`` and
+    ``train_2rank`` lines, and returns the workers' launch counts."""
+    with tempfile.TemporaryDirectory() as log_dir:
+        run = launch_2rank(log_dir)
+        out = run["output"]
+        if run["returncode"] != 0:
+            raise RuntimeError(f"train_2rank: the launcher exited "
+                               f"{run['returncode']}:\n{out[-6000:]}")
+        by_rank = result_lines(out)
+        if sorted(by_rank) != [0, 1]:
+            raise RuntimeError(f"train_2rank: RESULT lines of ranks "
+                               f"{sorted(by_rank)}:\n{out[-6000:]}")
+        for rank in (0, 1):
+            with open(os.path.join(log_dir, f"rank.{rank}", "stdout")) as f:
+                captured = result_lines(f.read())
+            assert captured == {rank: by_rank[rank]}, \
+                f"--output-filename capture of rank {rank} differs"
+    results = [by_rank[0], by_rank[1]]
+    assert run["rank_codes"] == {0: 0, 1: 0}, run["rank_codes"]
     r0, r1 = results
     for r in results:
         assert r["backend"] == "gloo", r["backend"]
@@ -736,10 +868,40 @@ def phase_train_2rank() -> dict:
         assert c["fusion_plain_calls"] == {"pack": 0, "unpack": 0}, c
         assert c["flash"] >= 12 * STEPS_2RANK, c
         assert all(r["eager"].values()), r["eager"]
+        m = r["metrics"]
+        assert (m["signed"], m["unsigned"]) == (200, 403), m
+        assert m["gloo_series"], m
+        assert r["slot"]["transport"] == "gloo", r["slot"]
+        assert r["rendezvous_port"] == r0["rendezvous_port"], r
     assert r0["params_sha256"] == r1["params_sha256"], \
         "parameters differ between the ranks"
     median = [statistics.median(r["step_ms"][1:]) for r in results]
+    launched_by = " ".join(["python"] + run["cmd"][1:7])
+    # Host seconds of each rank's way to its first step, from the wall
+    # clock at the launch (one host, one clock).
+    startup = {}
+    for r in results:
+        w = r["wall"]
+        spawned = run["spawned"][r["rank"]]
+        startup[r["rank"]] = {
+            "launcher_s": spawned - run["wall0"],
+            "worker_interpreter_s": w["started"] - spawned,
+            "launch_to_worker_start_s": w["started"] - run["wall0"],
+            "imports_s": w["init_begin"] - w["started"],
+            "init_s": w["init_end"] - w["init_begin"],
+            "model_and_broadcast_s": w["model_ready"] - w["init_end"],
+            "first_step_s": w["first_step_end"] - w["model_ready"],
+            "launch_to_first_step_s": w["first_step_end"] - run["wall0"]}
+    emit("launcher", launched_by=launched_by,
+         slot_plan=[r["slot"] for r in results],
+         rendezvous_port=r0["rendezvous_port"],
+         exit_codes={"launcher": run["returncode"],
+                     "ranks": run["rank_codes"]},
+         first_result_s=run["first_result_s"], launch_s=run["seconds"],
+         startup=startup,
+         metrics={r["rank"]: r["metrics"] for r in results})
     emit("train_2rank", config="gpt2_small bf16 flash, 2 ranks on one card",
+         launched_by=launched_by,
          backend="gloo", batch_per_rank=BATCH, seq=SEQ, steps=STEPS_2RANK,
          losses={r["rank"]: r["losses"] for r in results},
          step_ms={r["rank"]: r["step_ms"] for r in results},

@@ -8,8 +8,10 @@ Module paths mirror :mod:`horovod_tpu` (``common/``, ``ops/``,
 module of ``horovod_tpu``.  Its kernels are hand-written CUDA for Hopper
 (``kernels/``), built at first use.
 
-This slice runs a world of one process; the multi-rank data plane is the
-port's slice 2 (see ROADMAP.md).
+A world of one process needs no launcher; a larger one is started by
+``python -m horovod_tpu_torch.runner.launch -np N -H host:slots ...``
+(``runner/``), as ``horovodrun`` starts a Horovod job (see ROADMAP.md
+for what is ported).
 """
 
 from .version import __version__

@@ -7,17 +7,21 @@ PyTorch on the tensors' own device.
 
 A world of one process runs the reference's ``SingleProcessBackend`` +
 ``LoopbackController`` path.  A larger world (the launcher's env
-contract: ``HOROVOD_RANK``/``HOROVOD_SIZE``/... plus
-``HOROVOD_TPU_COORDINATOR`` and ``HOROVOD_CONTROLLER_ADDR``) joins one
-``torch.distributed`` process group at ``tcp://$HOROVOD_TPU_COORDINATOR``
-that carries CPU tensors over gloo and CUDA tensors over NCCL, or over
-gloo when local ranks share a card (``ops/dist_ops.py``), and negotiates
-through ``controller_net``.  Elastic rendezvous is not ported yet.
+contract, ``runner/gpu_run.py``: ``HOROVOD_RANK``/``HOROVOD_SIZE``/...
+plus ``HOROVOD_TPU_COORDINATOR`` and ``HOROVOD_CONTROLLER_ADDR``) joins
+one ``torch.distributed`` process group at
+``tcp://$HOROVOD_TPU_COORDINATOR`` that carries CPU tensors over gloo
+and CUDA tensors over NCCL, or over gloo when local ranks share a card
+(``ops/dist_ops.py``), and negotiates through ``controller_net``.  When
+rank 0 runs on another host than the launcher, rank 0 picks both ports
+and publishes them through the rendezvous KV (``runner/endpoints.py``).
+Elastic rendezvous is not ported yet.
 """
 
 import atexit
 import datetime
 import logging
+import os
 import threading
 from typing import List, Optional, Sequence
 
@@ -121,8 +125,9 @@ def _state() -> HorovodTpuState:
 
 def _require_single_process(what: str):
     raise NotImplementedError(
-        f"horovod_tpu_torch: {what} needs the runner (runner/, "
-        "runner/elastic/), which is not ported yet")
+        f"horovod_tpu_torch: {what} needs the elastic launcher "
+        "(runner/elastic/), which is not ported yet; it comes with the "
+        "elastic slice (ROADMAP.md Queue 1, item 5)")
 
 
 def _init_process_group(state: HorovodTpuState) -> bool:
@@ -164,8 +169,8 @@ def init(comm=None, process_sets=None):
 
     ``comm`` may be a list of ranks forming a sub-world (reference
     semantics of ``hvd.init(comm=[0,1])``, common/basics.py:33-65); mpi4py
-    communicators are not supported (no MPI on TPU pods) — the rendezvous
-    is the launcher env contract / TPU slice metadata instead.
+    communicators are not supported (there is no MPI path) — the
+    rendezvous is the launcher's env contract instead.
     """
     state = _state()
     with state.init_lock:
@@ -200,6 +205,30 @@ def init(comm=None, process_sets=None):
                     sub_rank = ranks.index(state.rank_info.rank)
                     state.rank_info.rank = sub_rank
                     state.rank_info.size = len(ranks)
+
+        if state.rank_info.size > 1 and \
+                env_mod.env_str_opt(
+                    env_mod.HOROVOD_TPU_COORDINATOR) is None \
+                and env_mod.env_str_opt("HOROVOD_RANK0_ADDR") and \
+                env_mod.env_str_opt(env_mod.HOROVOD_RENDEZVOUS_ADDR):
+            # Static launch with a remote rank 0: the launcher could
+            # not pick valid ports for rank 0's host, so rank 0 picks
+            # them here and publishes via the rendezvous KV
+            # (runner/endpoints.py).
+            from ..runner.endpoints import STATIC_KEY, resolve_endpoints
+            from ..runner.http_server import RendezvousClient
+            client = RendezvousClient(
+                env_mod.env_require(env_mod.HOROVOD_RENDEZVOUS_ADDR),
+                int(env_mod.env_require(
+                    env_mod.HOROVOD_RENDEZVOUS_PORT)))
+            eps = resolve_endpoints(
+                client, state.rank_info.rank,
+                env_mod.env_require("HOROVOD_RANK0_ADDR"), STATIC_KEY,
+                timeout=env_mod.start_timeout())
+            os.environ[env_mod.HOROVOD_TPU_COORDINATOR] = \
+                eps["coordinator"]
+            os.environ["HOROVOD_CONTROLLER_ADDR"] = \
+                eps["controller_addr"]
 
         if state.rank_info.size > 1:
             state.process_group_owned = _init_process_group(state)

@@ -13,10 +13,14 @@ Counterpart of :mod:`horovod_tpu.common.controller_net`, copied whole:
 negotiation, the response cache, replay, liveness and reconnect, the
 relay tree, metrics frames.  The port always runs the Python
 ``CoordinatorServer``: the native C++ coordinator is not ported, and
-``HOROVOD_TPU_NATIVE`` set to a true value raises at init.  The tuning
-session (``HOROVOD_TUNE``, ``HOROVOD_AUTOTUNE``), the elastic epoch and
-the rendezvous client arrive with later slices (``tune/``, the runner);
-each raises a clear error where it is asked for.
+``HOROVOD_TPU_NATIVE`` set to a true value raises at init.  The
+rendezvous KV client is the port's ``runner/http_server.py``: with the
+launcher's ``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT`` set, rank 0
+publishes its bound controller address there and the other ranks read
+it.  The tuning session (``HOROVOD_TUNE``, ``HOROVOD_AUTOTUNE``) and the
+elastic epoch arrive with later slices (``tune/``, ``runner/elastic/``);
+the tuning session raises a clear error where it is asked for, and
+every run is elastic epoch 0.
 
 Deltas from the reference:
   * event-driven push instead of a 1 ms gather cycle — ranks send only
@@ -2664,7 +2668,7 @@ class NetworkController(Controller):
                     "HOROVOD_TUNE / HOROVOD_AUTOTUNE: the autotuner "
                     "(tune/, parameter_manager) is not ported to "
                     "horovod_tpu_torch yet; it comes with the tune/ slice "
-                    "(ROADMAP.md Queue 1)")
+                    "(ROADMAP.md Queue 1, item 7)")
             self.server = self._make_server(state, port)
             self._publish_actual_addr(addr, self.server.port)
             host = "127.0.0.1"
@@ -2738,9 +2742,9 @@ class NetworkController(Controller):
         if env_mod.env_bool("HOROVOD_TPU_NATIVE"):
             raise NotImplementedError(
                 "HOROVOD_TPU_NATIVE: the native C++ coordinator is not "
-                "ported to horovod_tpu_torch; it comes with the runner "
-                "slice (ROADMAP.md Queue 1).  Unset it to run the Python "
-                "coordinator.")
+                "ported to horovod_tpu_torch; it comes with its own slice "
+                "(ROADMAP.md Queue 1, item 6).  Unset it to run the "
+                "Python coordinator.")
         if _slo.ENABLED:
             # Rank 0 hosts the coordinator: its SLO burn alerts become
             # the job-level KV notice the elastic driver folds into
@@ -2778,8 +2782,8 @@ class NetworkController(Controller):
 
         def publish(rank, reason, _client=client):
             # The elastic worker's epoch provider arrives with the
-            # runner; until then every run is epoch 0 (failpoints.py
-            # makes the same call).
+            # elastic slice; until then every run is epoch 0
+            # (failpoints.py makes the same call).
             epoch = 0
             try:
                 # Per-rank key: two ranks lost in the same driver poll
@@ -2878,15 +2882,12 @@ class NetworkController(Controller):
 
     @staticmethod
     def _rendezvous_client():
+        from ..runner.http_server import RendezvousClient
         addr = env_mod.env_str_opt(env_mod.HOROVOD_RENDEZVOUS_ADDR)
         port = env_mod.env_str_opt(env_mod.HOROVOD_RENDEZVOUS_PORT)
         if not addr or not port:
             return None
-        raise NotImplementedError(
-            f"{env_mod.HOROVOD_RENDEZVOUS_ADDR}/_PORT: the rendezvous KV client "
-            "(runner/http_server.py) is not ported to horovod_tpu_torch "
-            "yet; it comes with the runner slice (ROADMAP.md Queue 1).  "
-            "Launch with the static env contract instead.")
+        return RendezvousClient(addr, int(port))
 
     def _ctrl_scope(self) -> str:
         # Per-epoch scope so elastic re-inits don't read a stale addr.

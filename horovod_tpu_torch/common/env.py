@@ -718,5 +718,6 @@ class Knobs:
         if knobs.tune_profile:
             raise NotImplementedError(
                 "HOROVOD_TUNE_PROFILE: the autotuner (tune/) is not "
-                "ported to horovod_tpu_torch yet")
+                "ported to horovod_tpu_torch yet; it comes with the tune/ "
+                "slice (ROADMAP.md Queue 1, item 7)")
         return knobs

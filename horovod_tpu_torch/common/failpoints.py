@@ -141,8 +141,8 @@ def _current_epoch() -> int:
             return int(_epoch_provider())
         except Exception:
             return 0
-    # The elastic worker's epoch provider arrives with the runner
-    # (multi-rank slice); until then every run is epoch 0.
+    # The elastic worker's epoch provider arrives with the elastic
+    # slice (runner/elastic/); until then every run is epoch 0.
     return 0
 
 

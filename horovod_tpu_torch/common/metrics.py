@@ -450,22 +450,167 @@ def timed_collective(backend: str, op: str,
 # ---------------------------------------------------------------------------
 
 class MetricsServer:
-    """The ``/metrics`` / ``/status`` / ``/profile`` / ``/blackbox``
-    HTTP endpoint.  It rides the rendezvous KV server's handler and
-    job-secret HMAC guard (``runner/http_server.py``,
-    ``runner/job_secret.py``), which arrive with the runner in the
-    multi-rank slice; until then starting it raises, so a configured
-    endpoint is never silently served without its auth guard."""
+    """Threaded Prometheus-text endpoint reusing the rendezvous KV
+    server's handler plumbing — including its job-secret HMAC guard, so
+    the endpoint is never an unauthenticated sidechannel when the job
+    runs with a secret (launchers always set one; direct/unit-test use
+    without ``HOROVOD_SECRET_KEY`` serves openly, matching
+    RendezvousServer semantics)."""
 
     def __init__(self, port: int = 0, registry: Optional[MetricsRegistry] = None,
                  cluster_provider: Optional[Callable[[], Optional[dict]]] = None,
                  secret: Optional[str] = None,
                  status_provider: Optional[Callable[[], Optional[dict]]] = None,
                  profile_provider: Optional[Callable[[], Optional[dict]]] = None):
-        raise NotImplementedError(
-            "the /metrics endpoint needs the runner's KV handler and "
-            "job-secret guard, which are ported with the multi-rank "
-            "data plane (slice 2)")
+        from http.server import ThreadingHTTPServer
+
+        from ..runner import job_secret
+        from ..runner.http_server import (NOT_FOUND, OK, KVStoreHandler,
+                                          ReplayCache)
+
+        self._registry = registry if registry is not None else REGISTRY
+        self._cluster_provider = cluster_provider
+        self._status_provider = status_provider
+        self._profile_provider = profile_provider
+        server_self = self
+
+        class _MetricsHandler(KVStoreHandler):
+            def do_GET(self):
+                if not self._authorized():
+                    return
+                path = self.path.split("?", 1)[0].rstrip("/")
+                if path == "/blackbox":
+                    # Live black-box extraction: the flight recorder's
+                    # ring as JSON, behind the SAME job-secret HMAC as
+                    # /metrics (a postmortem dump is a traffic log —
+                    # never an unauthenticated sidechannel).
+                    from . import flight_recorder
+                    body = json.dumps(flight_recorder.dump_dict(
+                        reason="http")).encode()
+                    self.send_response(OK)
+                    self.send_header("Content-Type",
+                                     "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if path == "/status":
+                    # Live cluster/status view (common/straggler.py +
+                    # hvd.status()): per-rank alive/limbo/wedged/slow,
+                    # replay + tune phase, queue depth, straggler
+                    # scores — behind the SAME job-secret HMAC as
+                    # /metrics (a liveness map is a topology map,
+                    # never an unauthenticated sidechannel).  404
+                    # when no provider is wired (bare registry
+                    # servers).
+                    provider = server_self._status_provider
+                    if provider is None:
+                        self.send_response(NOT_FOUND)
+                        self.send_header("Content-Length", "0")
+                        self.end_headers()
+                        return
+                    try:
+                        payload = provider()
+                    except Exception:
+                        logger.debug("status provider failed",
+                                     exc_info=True)
+                        payload = None
+                    body = json.dumps(
+                        payload if payload is not None else {}
+                    ).encode()
+                    self.send_response(OK)
+                    self.send_header("Content-Type",
+                                     "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if path == "/profile":
+                    # This rank's sampling-profiler payload
+                    # (common/profiler.py): flame-ready collapsed
+                    # stacks + lane/GIL/blocking shares + the last
+                    # triggered capture — behind the SAME job-secret
+                    # HMAC as /metrics (a live stack profile is a
+                    # code map, never an unauthenticated
+                    # sidechannel).  404 when no provider is wired
+                    # (bare registry servers).
+                    provider = server_self._profile_provider
+                    if provider is None:
+                        self.send_response(NOT_FOUND)
+                        self.send_header("Content-Length", "0")
+                        self.end_headers()
+                        return
+                    try:
+                        payload = provider()
+                    except Exception:
+                        logger.debug("profile provider failed",
+                                     exc_info=True)
+                        payload = None
+                    body = json.dumps(
+                        payload if payload is not None else {}
+                    ).encode()
+                    self.send_response(OK)
+                    self.send_header("Content-Type",
+                                     "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                if path != "/metrics":
+                    self.send_response(NOT_FOUND)
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                body = server_self.render().encode()
+                self.send_response(OK)
+                self.send_header(
+                    "Content-Type",
+                    "text/plain; version=0.0.4; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_PUT(self):
+                self._reject(405)
+
+            def do_DELETE(self):
+                self._reject(405)
+
+        self._httpd = ThreadingHTTPServer(("0.0.0.0", port),
+                                          _MetricsHandler)
+        self._httpd.kvstore = None
+        self._httpd.secret = secret if secret is not None \
+            else job_secret.current()
+        self._httpd.replay_cache = ReplayCache()
+        self._httpd.daemon_threads = True
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="hvd-metrics-http",
+            daemon=True)
+        self._thread.start()
+        logger.debug("metrics endpoint listening on %d", self.port)
+
+    def render(self) -> str:
+        text = self._registry.render_prometheus()
+        if self._cluster_provider is not None:
+            try:
+                merged = self._cluster_provider()
+            except Exception:
+                logger.debug("cluster metrics provider failed",
+                             exc_info=True)
+                merged = None
+            if merged:
+                text += render_snapshot(merged, prefix="cluster_")
+        return text
+
+    def stop(self):
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
 
 
 def serve(port: int = 0, registry: Optional[MetricsRegistry] = None,

@@ -1,0 +1,140 @@
+"""Process-tree-safe command execution for the launcher.
+
+The analog of the reference's ``safe_shell_exec`` (reference:
+runner/common/util/safe_shell_exec.py:33-170): worker commands are
+spawned in their own session (``setsid``) so the whole descendant tree
+can be terminated together — on an event (elastic reset, another worker
+failing) or on driver exit.  Uses ``psutil`` for recursive child
+termination instead of a middleman process; without ``psutil`` it
+signals the child's process group.
+
+Counterpart of :mod:`horovod_tpu.runner.safe_shell_exec`, copied.
+"""
+
+import logging
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+from typing import IO, List, Optional
+
+logger = logging.getLogger("horovod_tpu_torch.exec")
+
+GRACEFUL_TERMINATION_TIME_S = 5
+
+
+def terminate_process_tree(pid: int,
+                           grace_s: float = GRACEFUL_TERMINATION_TIME_S):
+    """SIGTERM the process and all descendants, then SIGKILL leftovers."""
+    try:
+        import psutil
+    except ImportError:
+        try:
+            os.killpg(os.getpgid(pid), signal.SIGTERM)
+        except (ProcessLookupError, PermissionError):
+            pass
+        return
+    try:
+        root = psutil.Process(pid)
+    except psutil.NoSuchProcess:
+        return
+    procs = [root] + root.children(recursive=True)
+    for p in procs:
+        try:
+            p.terminate()
+        except psutil.NoSuchProcess:
+            pass
+    _, alive = psutil.wait_procs(procs, timeout=grace_s)
+    for p in alive:
+        try:
+            p.kill()
+        except psutil.NoSuchProcess:
+            pass
+
+
+def _forward_stream(stream: IO[bytes], sinks: List[IO], prefix: str = ""):
+    """Pump a child stream line-by-line into sinks (driver stdout and/or
+    a per-rank capture file), optionally rank-prefixed (reference
+    behavior: gloo_run.py:150-163 per-rank capture)."""
+    for raw in iter(stream.readline, b""):
+        line = raw.decode("utf-8", errors="replace")
+        for sink in sinks:
+            try:
+                sink.write(prefix + line if prefix else line)
+                sink.flush()
+            except ValueError:   # sink closed
+                pass
+    stream.close()
+
+
+def execute(command: str,
+            env: Optional[dict] = None,
+            stdout: Optional[IO] = None,
+            stderr: Optional[IO] = None,
+            index: Optional[int] = None,
+            events: Optional[List[threading.Event]] = None,
+            prefix_output_with_timestamp: bool = False,
+            stdin_data: Optional[bytes] = None) -> int:
+    """Run ``command`` through a shell in a new session; stream output;
+    kill the whole tree if any event fires.  Returns the exit code.
+    ``stdin_data`` is written to the child's stdin and the pipe closed
+    (used to hand secrets to remote shells without touching argv)."""
+    proc = subprocess.Popen(
+        command, shell=True, env=env,
+        stdin=subprocess.PIPE if stdin_data is not None else None,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        start_new_session=True)
+    if stdin_data is not None:
+        try:
+            proc.stdin.write(stdin_data)
+            proc.stdin.close()
+        except BrokenPipeError:
+            pass
+
+    prefix = ""
+    if index is not None:
+        prefix = f"[{index}]<stdout>:"
+    out_sinks = [sys.stdout] + ([stdout] if stdout else [])
+    err_sinks = [sys.stderr] + ([stderr] if stderr else [])
+    threads = [
+        threading.Thread(target=_forward_stream,
+                         args=(proc.stdout, out_sinks, prefix),
+                         daemon=True),
+        threading.Thread(
+            target=_forward_stream,
+            args=(proc.stderr, err_sinks,
+                  f"[{index}]<stderr>:" if index is not None else ""),
+            daemon=True),
+    ]
+    for t in threads:
+        t.start()
+
+    stop_watch = threading.Event()
+
+    def _watch_events():
+        while not stop_watch.is_set():
+            for ev in (events or []):
+                if ev.is_set():
+                    logger.debug("terminating pid %d on event", proc.pid)
+                    terminate_process_tree(proc.pid)
+                    return
+            time.sleep(0.1)
+
+    watcher = None
+    if events:
+        watcher = threading.Thread(target=_watch_events, daemon=True)
+        watcher.start()
+
+    try:
+        proc.wait()
+    finally:
+        stop_watch.set()
+        if watcher is not None:
+            watcher.join(timeout=1.0)
+        for t in threads:
+            t.join(timeout=5.0)
+        # Reap any stragglers the command left behind.
+        terminate_process_tree(proc.pid, grace_s=0.5)
+    return proc.returncode

@@ -1,6 +1,7 @@
 """The port's copy of the networked controller and the data plane's
 device rule, in one process on the CPU: what is not ported yet raises a
-clear error instead of running something else, and the transport of
+clear error instead of running something else, the launcher's
+rendezvous env gives the port's KV client, and the transport of
 CUDA tensors follows the cards a host has.  The protocol itself runs in
 test_torch_port_multiproc.py; the negotiation, cache and relay code is
 the JAX package's, copied whole."""
@@ -46,10 +47,13 @@ def test_native_coordinator_is_refused(monkeypatch):
 
 
 def test_rendezvous_client_is_refused(monkeypatch):
+    # The launcher's rendezvous env gives the port's KV client
+    # (runner/http_server.py); without both variables there is none.
+    from horovod_tpu_torch.runner.http_server import RendezvousClient
     monkeypatch.setenv(env.HOROVOD_RENDEZVOUS_ADDR, "127.0.0.1")
     monkeypatch.setenv(env.HOROVOD_RENDEZVOUS_PORT, "1")
-    with pytest.raises(NotImplementedError, match="rendezvous"):
-        cn.NetworkController._rendezvous_client()
+    assert isinstance(cn.NetworkController._rendezvous_client(),
+                      RendezvousClient)
     monkeypatch.delenv(env.HOROVOD_RENDEZVOUS_PORT)
     assert cn.NetworkController._rendezvous_client() is None
 

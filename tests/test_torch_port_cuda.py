@@ -11,6 +11,7 @@ is installed:
 """
 
 import dataclasses
+import sys
 
 import pytest
 import torch
@@ -250,3 +251,62 @@ def test_runtime_stream_waits_for_the_producer(cuda):
         assert y.is_cuda and torch.equal(y, torch.full_like(x, 2.0))
     finally:
         hvd.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The launcher on the card: the slot plan decides the transport.
+# ---------------------------------------------------------------------------
+_TRANSPORT_WORKER = """
+import json
+import torch
+import horovod_tpu_torch.torch as hvd
+from horovod_tpu_torch.common import basics
+hvd.init()
+transport = basics._state().transport
+cards = hvd.allgather_object(torch.cuda.current_device())
+cpu = hvd.allreduce(torch.ones(4) * (hvd.rank() + 1), op=hvd.Sum, name="cpu")
+cuda = None
+# NCCL refuses two ranks on one card: a CUDA collective runs over NCCL
+# only where every rank has a card of its own.
+if transport == "gloo" or len(set(cards)) == len(cards):
+    cuda = hvd.allreduce(torch.ones(4, device="cuda") * (hvd.rank() + 1),
+                         op=hvd.Sum, name="cuda").tolist()
+print("RESULT " + json.dumps({
+    "rank": hvd.rank(), "local_size": hvd.local_size(),
+    "transport": transport, "backend": basics._state().backend.name,
+    "cards": cards, "cpu": cpu.tolist(), "cuda": cuda}), flush=True)
+hvd.shutdown()
+"""
+
+
+@pytest.mark.parametrize("hosts", ["localhost:2", "localhost:1,127.0.0.1:1"])
+def test_launcher_transport_follows_the_slot_plan(cuda, tmp_path, hosts):
+    # Two ranks on one host share the card unless the host has two: gloo.
+    # One rank on each of two hosts (both this machine here): NCCL.
+    import json
+
+    from test_torch_port_multiproc import launcher_env, run_port_launcher
+    script = tmp_path / "worker.py"
+    script.write_text(_TRANSPORT_WORKER)
+    rc, out = run_port_launcher(
+        ["-np", "2", "-H", hosts, sys.executable, str(script)],
+        launcher_env(),
+        timeout=300)
+    assert rc == 0, out[-3000:]
+    res = {}
+    for line in out.splitlines():
+        _, sep, rest = line.partition("<stdout>:")
+        if sep and rest.startswith("RESULT "):
+            r = json.loads(rest[len("RESULT "):])
+            res[r["rank"]] = r
+    assert sorted(res) == [0, 1], out[-3000:]
+    local_size = 2 if hosts == "localhost:2" else 1
+    want = "nccl" if local_size <= torch.cuda.device_count() else "gloo"
+    for r in res.values():
+        assert r["local_size"] == local_size
+        assert r["transport"] == r["backend"] == want
+        assert r["cpu"] == [3.0] * 4
+        if r["cuda"] is not None:
+            assert r["cuda"] == [3.0] * 4
+    if want == "gloo":
+        assert all(r["cuda"] is not None for r in res.values())

@@ -23,6 +23,16 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import horovod_tpu_torch.common.relay\n"
         "import horovod_tpu_torch.ops.dist_ops, horovod_tpu_torch.ops.adasum\n"
         "import horovod_tpu_torch.ops.fusion_buffer\n"
+        "import horovod_tpu_torch.runner, horovod_tpu_torch.runner.launch\n"
+        "import horovod_tpu_torch.runner.gpu_run\n"
+        "import horovod_tpu_torch.runner.config_parser\n"
+        "import horovod_tpu_torch.runner.driver_service\n"
+        "import horovod_tpu_torch.runner.endpoints\n"
+        "import horovod_tpu_torch.runner.hosts\n"
+        "import horovod_tpu_torch.runner.http_server\n"
+        "import horovod_tpu_torch.runner.job_secret\n"
+        "import horovod_tpu_torch.runner.safe_shell_exec\n"
+        "import horovod_tpu_torch.common.metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

@@ -1,6 +1,9 @@
 """The port's multi-rank data plane on the CPU: worker processes with the
 launcher's env contract, gloo for the data, ``controller_net`` for the
-negotiation.
+negotiation.  The 2-rank port run goes twice, once with the env contract
+set here and once started by the port's launcher
+(``python -m horovod_tpu_torch.runner.launch -np 2 -H localhost:2``);
+both are held against the one JAX package run.
 
 * Every eager op at 2 ranks through ``horovod_tpu_torch.torch`` and
   through ``horovod_tpu.torch`` on the same numpy inputs: the two agree
@@ -40,6 +43,40 @@ hvd.init()
 RANK = hvd.rank()
 SIZE = hvd.size()
 """
+
+
+def launcher_env(extra_env=None):
+    """The environment of a port launcher process: this one's, with the
+    test defaults of ``run_port_workers`` (the launcher forwards it to
+    every worker)."""
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env.update({"HOROVOD_STEADY_STATE_REPLAY": "0",
+                "HOROVOD_LIVENESS_INTERVAL": "3",
+                "HOROVOD_LIVENESS_TIMEOUT": "15",
+                "HOROVOD_RECONNECT_GRACE": "10",
+                "HOROVOD_START_TIMEOUT": "60",
+                "PYTHONPATH": REPO})
+    env.update(extra_env or {})
+    return env
+
+
+def run_port_launcher(args, env, timeout=WORKER_TIMEOUT_S):
+    """``python -m horovod_tpu_torch.runner.launch *args`` in its own
+    session; past ``timeout`` the launcher and its workers are killed.
+    Returns (returncode, output)."""
+    from horovod_tpu_torch.runner.safe_shell_exec import \
+        terminate_process_tree
+    p = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *args],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        terminate_process_tree(p.pid, grace_s=1.0)
+        out, _ = p.communicate()
+        return -9, out.decode(errors="replace")
+    return p.returncode, out.decode(errors="replace")
 
 
 def run_port_workers(body: str, nproc: int = 2, per_rank_env=None,
@@ -226,6 +263,22 @@ def both_packages(tmp_path_factory):
     return _load(result_dir, "jax", 2), _load(result_dir, "port", 2)
 
 
+@pytest.fixture(scope="module")
+def launched(tmp_path_factory, both_packages):
+    """The port's body at 2 ranks started by the port's launcher, after
+    the two worlds of ``both_packages``, whose JAX results it is held
+    against."""
+    tmp = tmp_path_factory.mktemp("port_launched")
+    script = tmp / "body.py"
+    script.write_text(_PORT_PRELUDE + "T = hvd\nPKG = 'launched'\n" + _BODY)
+    rc, out = run_port_launcher(
+        ["-np", "2", "-H", "localhost:2", sys.executable, str(script)],
+        launcher_env({"RESULT_DIR": str(tmp)}))
+    assert rc == 0, out[-3000:]
+    assert out.count("BODY DONE") == 2, out[-3000:]
+    return _load(str(tmp), "launched", 2)
+
+
 def _expected():
     ns = {"np": np}
     exec(_INPUTS, ns)
@@ -330,6 +383,31 @@ def test_training_matches_jax(both_packages, model, op):
                              start.randn(*port_res[0][k].shape) * 0.1)
              for k in sorted(keys)]
     assert any(moved)
+
+
+@pytest.mark.parametrize("key", _EXACT)
+def test_launched_eager_op_matches_jax_exactly(both_packages, launched, key):
+    jax_res, _ = both_packages
+    want = _expected()
+    for r in range(2):
+        got, ref = launched[r][key], jax_res[r][key]
+        assert got.dtype == ref.dtype and got.shape == ref.shape, key
+        np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got, want[r][key].astype(got.dtype))
+
+
+@pytest.mark.parametrize("model", ["mlp", "gpt"])
+@pytest.mark.parametrize("op", ["Average", "Adasum"])
+def test_launched_training_matches_jax(both_packages, launched, model, op):
+    jax_res, _ = both_packages
+    keys = sorted(k for k in jax_res[0] if k.startswith(f"train/{model}/{op}/"))
+    assert keys and keys == sorted(
+        k for k in launched[0] if k.startswith(f"train/{model}/{op}/"))
+    for r in range(2):
+        for k in keys:
+            np.testing.assert_array_equal(launched[r][k], launched[0][k])
+            np.testing.assert_allclose(launched[r][k], jax_res[r][k],
+                                       atol=1e-6, rtol=1e-5, err_msg=k)
 
 
 def test_process_set_of_two_ranks_in_a_world_of_three():
