@@ -1,8 +1,9 @@
 """On-card smoke test of horovod_tpu_torch: builds the CUDA kernels from
 this checkout, holds each against its plain PyTorch version, checks the
 GPT-2-small model at full width, trains it through ``hvd.torch`` in a
-world of one, runs the NCCL backend in a world of one, and trains it at
-two ranks sharing the card.
+world of one, runs the NCCL backend in a world of one (made and destroyed
+three times, as an elastic reset does), trains it at two ranks sharing
+the card, and trains it elastically at 2, 3 and 2 ranks.
 
     python3 chip_smoke.py
 
@@ -19,6 +20,13 @@ Both use the one card, so CUDA tensors cross ranks over gloo, staged
 through host memory (NCCL refuses two ranks on one device).  Each worker
 also reads its own ``/metrics`` endpoint, signed with the job secret and
 unsigned, before it shuts down.
+
+The elastic phase starts ``chip_smoke.py --elastic-worker`` through the
+elastic launcher, ``python -m horovod_tpu_torch.runner.launch -np 2
+--min-np 2 --max-np 3 --host-discovery-script <script>``, whose script
+prints a hosts file the phase rewrites: ``127.0.0.1:1`` joins after three
+steps at size 2, dies inside a backward after three steps at size 3, and
+the survivors restore the last commit and train on at size 2.
 """
 
 import ast
@@ -564,28 +572,49 @@ def free_port() -> int:
 
 
 def phase_nccl_world1():
-    """The NCCL backend in a world of one rank on this card: every
-    collective once on CUDA tensors, each against its expected result.
-    One card cannot hold a two-rank NCCL communicator."""
+    """The NCCL backend in a world of one rank on this card, made the way
+    an elastic reset makes it: ``basics`` joins a one-rank group at a
+    fresh store port (``_init_process_group``: the card kept, the
+    transport agreed), every collective runs once on CUDA tensors against
+    its expected result, and ``basics.shutdown()`` destroys the group;
+    three incarnations.  One card cannot hold a two-rank NCCL
+    communicator."""
     import torch.distributed as dist
-    from horovod_tpu_torch.common.env import Knobs, RankInfo
-    dist.init_process_group(dist_ops.process_group_backend("nccl"),
-                            init_method=f"tcp://127.0.0.1:{free_port()}",
-                            world_size=1, rank=0)
-    try:
-        state = dataclasses.make_dataclass(
-            "State", ["rank_info", "knobs"])(RankInfo(), Knobs())
-        backend = dist_ops.TorchDistBackend(state, "nccl")
-        before = dict(fb.launches)
-        checks = dist_ops.world1_checks(backend, torch.device("cuda"))
-    finally:
-        dist.destroy_process_group()
-    emit("nccl_world1", backend=backend.name, checks=checks,
+    before = dict(fb.launches)
+    incarnations = []
+    for _ in range(3):
+        port = free_port()
+        os.environ["HOROVOD_TPU_COORDINATOR"] = f"127.0.0.1:{port}"
+        t0 = time.perf_counter()
+        basics.init()
+        state = basics._state()
+        try:
+            state.process_group_owned = basics._init_process_group(state)
+            state.backend = dist_ops.TorchDistBackend(state, state.transport)
+            made_s = time.perf_counter() - t0
+            checks = dist_ops.world1_checks(state.backend,
+                                            torch.device("cuda"))
+            backend = state.backend.name
+            card_index = torch.cuda.current_device()
+        finally:
+            t0 = time.perf_counter()
+            basics.shutdown()
+            del os.environ["HOROVOD_TPU_COORDINATOR"]
+        incarnations.append({
+            "store_port": port, "backend": backend,
+            "card": card_index, "checks": checks, "made_s": made_s,
+            "destroyed_s": time.perf_counter() - t0,
+            "group_left": dist.is_initialized()})
+    emit("nccl_world1", incarnations=incarnations,
          nccl_version=".".join(map(str, torch.cuda.nccl.version())),
          fusion_launches={k: fb.launches[k] - before[k] for k in before})
-    failed = [name for name, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"nccl_world1: {failed} failed")
+    failed = [(i, name) for i, inc in enumerate(incarnations)
+              for name, ok in inc["checks"].items() if not ok]
+    if failed or any(inc["backend"] != "nccl" or inc["group_left"]
+                     for inc in incarnations) or \
+            len({inc["card"] for inc in incarnations}) != 1:
+        raise AssertionError(f"nccl_world1: {failed} failed, or a group was "
+                             f"left or moved: {incarnations}")
 
 
 def eager_checks(rank: int, size: int, device) -> dict:
@@ -923,12 +952,339 @@ def phase_train_2rank() -> dict:
                           r["counts"]["fusion"]["unpack"] for r in results)}
 
 
+# ---------------------------------------------------------------------------
+# elastic: GPT-2 small through the elastic launcher, 2 -> 3 -> 2 ranks
+# ---------------------------------------------------------------------------
+ELASTIC_STEPS = 3          # steps the phase waits for at each size
+ELASTIC_SAMPLES = 512      # the seeded synthetic token set
+
+
+def state_sha256(model, opt) -> tuple:
+    """sha256 of the parameters and of the optimizer state, each read in
+    name order as fp32 bytes on the host."""
+    params, moments = hashlib.sha256(), hashlib.sha256()
+    for name, t in sorted(model.state_dict().items()):
+        params.update(name.encode())
+        params.update(t.detach().float().cpu().numpy().tobytes())
+    for i, st in sorted(opt.state_dict()["state"].items()):
+        for k, t in sorted(st.items()):
+            moments.update(f"{i}.{k}".encode())
+            moments.update(t.detach().float().cpu().numpy().tobytes())
+    return params.hexdigest(), moments.hexdigest()
+
+
+def elastic_worker():
+    """One rank of the elastic phase (``--elastic-worker``), started by
+    the elastic launcher: GPT-2 small at full width, bf16 compute, flash
+    attention, AdamW through ``DistributedOptimizer``, an
+    ``ElasticSampler`` over a seeded synthetic token set and a
+    ``TorchState`` committed after every step, in ``torch.elastic.run``.
+    The worker on host ``127.0.0.1`` dies (``os._exit(1)``) from a
+    gradient hook inside the backward of its fourth step.  Prints one
+    JSON line per sync (``SYNCED``), per step (``STEP``, with the kernel
+    counts so far) and at the end (``RESULT``)."""
+    from horovod_tpu_torch.runner.elastic.worker import current_epoch
+    from horovod_tpu_torch.torch.elastic import (ElasticSampler, TorchState,
+                                                 run)
+    wall = {"started": STARTED, "init_begin": time.time()}
+    hvd.init()
+    wall["init_end"] = time.time()
+    host = os.environ["HOROVOD_HOSTNAME"]
+    doomed = host == "127.0.0.1"
+    stop_file = os.environ["CHIP_ELASTIC_STOP"]
+    cfg = gpt.gpt2_small_config(attention_impl="flash", dropout=0.0)
+    model = gpt.GPTLMHeadModel(cfg, seed=0).train()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4),
+        named_parameters=model.named_parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (ELASTIC_SAMPLES, SEQ),
+                           generator=torch.Generator().manual_seed(7))
+    sampler = ElasticSampler(tokens, shuffle=True, seed=0)
+    state = TorchState(model, opt, sampler, step=0)
+    joined = []
+    # Host ms of the last commit (the snapshot on the card and the poll
+    # of the driver's generation), reported with the next step.
+    commit_ms = [None]
+
+    def emit_line(tag, **fields):
+        print(tag + " " + json.dumps(dict(fields, rank=hvd.rank(),
+                                          size=hvd.size(), host=host,
+                                          pid=os.getpid(),
+                                          wall=time.time())), flush=True)
+
+    if doomed:
+        def die(_):
+            if state.step >= joined[0] + ELASTIC_STEPS:
+                emit_line("DYING", step=state.step)
+                os._exit(1)
+        model.layers[0].attention.query.weight \
+            .register_post_accumulate_grad_hook(die)
+
+    torch.cuda.synchronize()
+    fa.launches = 0
+    fa.launches_by_body.update({body: 0 for body in fa.launches_by_body})
+    fb.launches.update({k: 0 for k in fb.launches})
+    fb.plain_calls.update({k: 0 for k in fb.plain_calls})
+    wall["model_ready"] = time.time()
+
+    @run
+    def train(state):
+        synced = time.time()
+        # Hashes only where the phase compares them: at the sync that
+        # takes a joiner in (every rank of the grown world).
+        sha = None
+        if not joined or hvd.size() == 3:
+            t0 = time.perf_counter()
+            sha = state_sha256(model, opt)
+            hash_s = time.perf_counter() - t0
+        else:
+            hash_s = 0.0
+        joined.append(state.step)
+        emit_line("SYNCED", step=state.step, epoch=current_epoch(),
+                  local_rank=hvd.local_rank(), cross_rank=hvd.cross_rank(),
+                  card=torch.cuda.current_device(),
+                  transport=basics._state().transport, sha=sha,
+                  synced_wall=synced, hash_s=hash_s)
+        batch = 0
+        while True:
+            stop = hvd.allreduce(torch.tensor([float(os.path.exists(
+                stop_file))]), op=hvd.Sum, name="elastic.stop")
+            if stop.item() > 0:
+                return state.step
+            t0 = time.perf_counter()
+            flash0 = fa.launches_by_body[fa.BODY_WGMMA]
+            fusion0, plain0 = dict(fb.launches), dict(fb.plain_calls)
+            idx = sampler.indices[batch * BATCH:(batch + 1) * BATCH]
+            ids = tokens[idx].cuda()
+            opt.zero_grad()
+            loss = gpt.lm_loss(model(ids), ids)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            sampler.record_batch(batch, BATCH)
+            batch += 1
+            state.step += 1
+            emit_line("STEP", step=state.step, loss=loss.item(),
+                      step_ms=(time.perf_counter() - t0) * 1e3,
+                      prev_commit_ms=commit_ms[0],
+                      flash=fa.launches_by_body[fa.BODY_WGMMA] - flash0,
+                      fusion={k: fb.launches[k] - fusion0[k] for k in fusion0},
+                      plain={k: fb.plain_calls[k] - plain0[k] for k in plain0},
+                      counts={"flash": fa.launches_by_body[fa.BODY_WGMMA],
+                              "flash_all_bodies": fa.launches,
+                              "fusion": dict(fb.launches),
+                              "fusion_plain_calls": dict(fb.plain_calls)})
+            t0 = time.perf_counter()
+            try:
+                state.commit()
+            finally:
+                commit_ms[0] = (time.perf_counter() - t0) * 1e3
+
+    train(state)
+    peak = torch.cuda.max_memory_allocated()
+    sha = state_sha256(model, opt)
+    hist = basics.metrics_snapshot()["histograms"].get(
+        "hvd_recovery_seconds", {})
+    emit_line("RESULT", step=state.step, sha=sha,
+              max_memory_allocated=peak, wall=wall,
+              recovery_seconds={k: {"count": v["count"], "sum": v["sum"]}
+                                for k, v in hist.items()},
+              counts={"flash": fa.launches_by_body[fa.BODY_WGMMA],
+                      "flash_all_bodies": fa.launches,
+                      "fusion": dict(fb.launches),
+                      "fusion_plain_calls": dict(fb.plain_calls)})
+    hvd.shutdown()
+
+
+_TAGGED = re.compile(r"^\[(\d+)\]<stdout>:(SYNCED|STEP|DYING|RESULT) (\{.*\})$")
+
+
+def phase_elastic() -> dict:
+    """GPT-2 small through the port's elastic launcher on this card:
+    ``-np 2 --min-np 2 --max-np 3 --host-discovery-script``.  Every rank
+    shares the card, so the data plane is gloo.  The phase grows the
+    world by adding ``127.0.0.1:1`` to the hosts file after three steps
+    at size 2; the joiner dies inside its fourth backward at size 3; the
+    phase stops the job after three steps at size 2 again.  Checks the
+    sizes, the commit the survivors resume from, the hashes after the
+    joiner's sync and at the end, the kernel counts and the exit codes;
+    emits the ``elastic`` line and returns the kernel launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        hosts = os.path.join(tmp, "hosts")
+        with open(hosts, "w") as f:
+            f.write("localhost:2\n")
+        script = os.path.join(tmp, "discover.sh")
+        with open(script, "w") as f:
+            f.write(f"#!/bin/sh\ncat {hosts}\n")
+        os.chmod(script, 0o755)
+        stop_file = os.path.join(tmp, "stop")
+        env = dict(os.environ, PYTHONPATH=REPO, CHIP_ELASTIC_STOP=stop_file)
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+               "-np", "2", "--min-np", "2", "--max-np", "3",
+               "--host-discovery-script", script, "--verbose",
+               sys.executable, os.path.abspath(__file__), "--elastic-worker"]
+        lines, events = [], []
+        marks = {}
+        wall0 = time.time()
+        proc = subprocess.Popen(cmd, env=env, cwd=REPO,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+
+        def pump():
+            for line in proc.stdout:
+                lines.append(line)
+                m = _TAGGED.match(line.rstrip("\n"))
+                if m:
+                    events.append((m.group(2), json.loads(m.group(3))))
+
+        reader = threading.Thread(target=pump, daemon=True)
+        reader.start()
+
+        def steps(size, after=0.0):
+            return [e for tag, e in list(events) if tag == "STEP" and
+                    e["size"] == size and e["wall"] > after]
+
+        def wait(cond, what):
+            deadline = time.monotonic() + WORKER_TIMEOUT_S
+            while not cond():
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    kill_tree(proc.pid)
+                    raise RuntimeError(f"elastic: {what} never happened:\n"
+                                       f"{''.join(lines)[-6000:]}")
+                time.sleep(0.2)
+
+        try:
+            wait(lambda: len(steps(2)) >= 2 * ELASTIC_STEPS,
+                 "three steps at size 2")
+            marks["hosts_changed"] = time.time()
+            with open(hosts, "w") as f:
+                f.write("localhost:2\n127.0.0.1:1\n")
+            wait(lambda: any(tag == "DYING" for tag, _ in list(events)),
+                 "the joiner's death")
+            marks["death"] = next(e["wall"] for tag, e in events
+                                  if tag == "DYING")
+            wait(lambda: len(steps(2, marks["death"])) >= 2 * ELASTIC_STEPS,
+                 "three steps at size 2 after the death")
+            with open(stop_file, "w"):
+                pass
+            proc.wait(timeout=WORKER_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            kill_tree(proc.pid)
+            raise RuntimeError("elastic: the launcher did not finish:\n"
+                               + "".join(lines)[-6000:])
+        reader.join(timeout=30)
+    out = "".join(lines)
+    if proc.returncode != 0:
+        raise RuntimeError(f"elastic: the launcher exited {proc.returncode}"
+                           f":\n{out[-6000:]}")
+    finished = re.search(r"all workers finished in [\d.]+s: (\{.*\})", out)
+    codes = ast.literal_eval(finished.group(1)) if finished else None
+    assert codes == {"localhost:0": 0, "localhost:1": 0,
+                     "127.0.0.1:0": 1}, codes
+
+    synced = [e for tag, e in events if tag == "SYNCED"]
+    step_events = [e for tag, e in events if tag == "STEP"]
+    results = {e["rank"]: e for tag, e in events if tag == "RESULT"}
+    dying = next(e for tag, e in events if tag == "DYING")
+    # The world sizes each process saw, in the order it saw them.
+    sizes = {}
+    for e in synced:
+        sizes.setdefault(e["pid"], []).append(e["size"])
+    originals = {e["pid"] for e in synced if e["epoch"] == 1}
+    assert len(originals) == 2 and \
+        all(sizes[pid] == [2, 3, 2] for pid in originals), sizes
+    assert [sizes[pid] for pid in sizes if pid not in originals] == [[3]]
+    # The joiner's state after sync() is rank 0's, bit for bit.
+    at3 = [e for e in synced if e["size"] == 3]
+    assert len(at3) == 3 and len({tuple(e["sha"]) for e in at3}) == 1, at3
+    # The step that the death interrupted never committed: the survivors
+    # resume from the last step every rank finished at size 3.
+    last3 = max(e["step"] for e in step_events if e["size"] == 3)
+    resumed = [e for e in synced if e["size"] == 2 and
+               e["wall"] > dying["wall"]]
+    assert [e["step"] for e in resumed] == [last3, last3], resumed
+    assert dying["step"] == last3
+    assert all(math.isfinite(e["loss"]) for e in step_events)
+    assert sorted(results) == [0, 1], sorted(results)
+    assert results[0]["sha"] == results[1]["sha"]
+    # Every step launched both kernels and no plain version.  The plain
+    # pack and unpack still run outside the steps, on the CPU tensors of
+    # the stop flag and of the sync's pickled objects.
+    for e in step_events:
+        assert e["flash"] >= 12, e
+        assert e["fusion"]["pack"] == e["fusion"]["unpack"] > 0, e
+        assert e["plain"] == {"pack": 0, "unpack": 0}, e
+        c = e["counts"]
+        assert c["flash_all_bodies"] == c["flash"], c
+    for e in synced:
+        assert e["transport"] == "gloo" and e["card"] == 0, e
+
+    commits = [e["prev_commit_ms"] for e in step_events
+               if e["prev_commit_ms"] is not None]
+    by_size = {}
+    for e in step_events:
+        by_size.setdefault(e["size"], {}).setdefault(e["rank"], []).append(
+            e["step_ms"])
+    first3 = min(e["wall"] for e in step_events if e["size"] == 3)
+    first2 = {r: min(e["wall"] for e in step_events if e["rank"] == r and
+                     e["size"] == 2 and e["wall"] > dying["wall"])
+              for r in (0, 1)}
+    joiner_sync = next(e for e in at3 if e["host"] == "127.0.0.1")
+    epochs = {}
+    for e in synced:
+        epochs.setdefault(e["epoch"], []).append(
+            {"host": e["host"], "local_rank": e["local_rank"],
+             "rank": e["rank"], "size": e["size"], "card": e["card"],
+             "transport": e["transport"]})
+    # Kernel launches of the run: each process's last count (the dead
+    # one's at the last step it finished).
+    last = {}
+    for e in step_events + list(results.values()):
+        last[e["pid"]] = e["counts"]
+    flash = sum(c["flash"] for c in last.values())
+    fusion = sum(c["fusion"]["pack"] + c["fusion"]["unpack"]
+                 for c in last.values())
+    emit("elastic", config="gpt2_small bf16 flash AdamW, batch 8 x 1024 "
+         "per rank, ranks sharing one card over gloo",
+         launched_by=" ".join(["python"] + cmd[1:11]),
+         exit_codes={"launcher": proc.returncode, "workers": codes},
+         slot_plan_by_epoch={str(k): sorted(v, key=lambda s: s["rank"])
+                             for k, v in sorted(epochs.items())},
+         sizes_seen={f"{'original' if pid in originals else 'joiner'} "
+                     f"pid {pid}": v for pid, v in sizes.items()},
+         resumed_step=last3,
+         steps_by_size={str(s): {str(r): len(v) for r, v in d.items()}
+                        for s, d in sorted(by_size.items())},
+         median_step_ms={str(s): {str(r): statistics.median(v)
+                                  for r, v in d.items()}
+                         for s, d in sorted(by_size.items())},
+         median_commit_ms=statistics.median(commits),
+         hosts_change_to_first_step_at_3_s=first3 - marks["hosts_changed"],
+         joiner_hash_s=joiner_sync["hash_s"],
+         death_to_first_step_at_2_s={str(r): t - dying["wall"]
+                                     for r, t in first2.items()},
+         death_to_resync_s={str(e["rank"]): e["synced_wall"] - dying["wall"]
+                            for e in resumed},
+         recovery_seconds={str(r): results[r]["recovery_seconds"]
+                           for r in (0, 1)},
+         max_memory_allocated={str(r): results[r]["max_memory_allocated"]
+                               for r in (0, 1)},
+         joiner_sha256=at3[0]["sha"], final_sha256=results[0]["sha"],
+         launch_s=time.time() - wall0,
+         counts={str(k): v for k, v in last.items()})
+    return {"flash": flash, "fusion": fusion}
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
     if sys.argv[1:] == ["--train-worker"]:
         train_2rank_worker()
+        return
+    if sys.argv[1:] == ["--elastic-worker"]:
+        elastic_worker()
         return
     CARD = card()
     emit("device", kind=torch.cuda.get_device_name(0),
@@ -941,8 +1297,9 @@ def main():
     phase_train()
     phase_nccl_world1()
     launches = phase_train_2rank()
-    flash_row["launches"] = launches["flash"]
-    fusion_row["launches"] = launches["fusion"]
+    elastic = phase_elastic()
+    flash_row["launches"] = launches["flash"] + elastic["flash"]
+    fusion_row["launches"] = launches["fusion"] + elastic["fusion"]
     print(CARD, flush=True)
     print(json.dumps({"kernels": [flash_row, fusion_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

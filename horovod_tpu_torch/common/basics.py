@@ -15,7 +15,14 @@ and CUDA tensors over NCCL, or over gloo when local ranks share a card
 (``ops/dist_ops.py``), and negotiates through ``controller_net``.  When
 rank 0 runs on another host than the launcher, rank 0 picks both ports
 and publishes them through the rendezvous KV (``runner/endpoints.py``).
-Elastic rendezvous is not ported yet.
+
+An elastic worker (``HOROVOD_ELASTIC=1`` with a rendezvous address, as
+``runner/elastic_run.py`` starts it) asks the driver for its rank, size
+and fresh endpoints at every ``init``; ``shutdown`` then ``init`` re-forms
+the world in the same process.  ``shutdown`` destroys the process group
+before it leaves the negotiation controller, so that a survivor stuck in
+a collective with a dead peer is released by its peers' teardown, and a
+re-init keeps the card the process took at its first init.
 """
 
 import atexit
@@ -106,6 +113,9 @@ class HorovodTpuState:
         self.elastic_enabled = False
         self.host_messages = None    # elastic host-update queue
         self.is_homogeneous = True
+        # The card this process took at its first multi-process init;
+        # an elastic re-init keeps it even if its local rank changed.
+        self.card: Optional[int] = None
         # Monotonic per-process init counter (observability; NOT safe
         # as a cross-rank namespace — freshly spawned elastic workers
         # start at 0 while survivors are at N).
@@ -123,27 +133,25 @@ def _state() -> HorovodTpuState:
     return _global_state
 
 
-def _require_single_process(what: str):
-    raise NotImplementedError(
-        f"horovod_tpu_torch: {what} needs the elastic launcher "
-        "(runner/elastic/), which is not ported yet; it comes with the "
-        "elastic slice (ROADMAP.md Queue 1, item 5)")
-
-
 def _init_process_group(state: HorovodTpuState) -> bool:
     """Join the world's ``torch.distributed`` process group, where the
-    JAX package joins ``jax.distributed``: address
-    ``tcp://$HOROVOD_TPU_COORDINATOR``, world size and rank from the env
-    contract.  Picks this rank's card and the transport of CUDA tensors
-    (``dist_ops.cuda_transport``) and logs it.  Returns whether this call
-    made the group (a group the caller made stays the caller's)."""
+    JAX package joins ``jax.distributed``: a TCP store at
+    ``$HOROVOD_TPU_COORDINATOR`` (rank 0 hosts it), world size and rank
+    from the env contract.  Picks this rank's card and the transport of
+    CUDA tensors (``dist_ops.cuda_transport``, agreed by every rank
+    through the store: ``dist_ops.world_transport``) and logs it.
+    Returns whether this call made the group (a group the caller made
+    stays the caller's)."""
     import torch
     import torch.distributed as dist
-    from ..ops.dist_ops import cuda_transport, process_group_backend
+    from ..ops.dist_ops import (card_identity, cuda_transport,
+                                process_group_backend, world_transport)
     info = state.rank_info
     state.transport = cuda_transport(info.local_size)
     if torch.cuda.is_available():
-        torch.cuda.set_device(info.local_rank % torch.cuda.device_count())
+        if state.card is None:
+            state.card = info.local_rank % torch.cuda.device_count()
+        torch.cuda.set_device(state.card)
     if dist.is_initialized():
         return False
     coordinator = env_mod.env_str_opt(env_mod.HOROVOD_TPU_COORDINATOR)
@@ -152,11 +160,16 @@ def _init_process_group(state: HorovodTpuState) -> bool:
             f"{env_mod.HOROVOD_TPU_COORDINATOR} must name host:port of the "
             "process group's store for multi-process runs (the launcher "
             "sets it)")
+    timeout = datetime.timedelta(seconds=env_mod.start_timeout())
+    host, port = coordinator.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), info.size,
+                          is_master=info.rank == 0, timeout=timeout)
+    state.transport = world_transport(
+        store, info.rank, info.size, state.transport,
+        card_identity(state.card if torch.cuda.is_available() else None))
     dist.init_process_group(
-        process_group_backend(state.transport),
-        init_method=f"tcp://{coordinator}", world_size=info.size,
-        rank=info.rank,
-        timeout=datetime.timedelta(seconds=env_mod.start_timeout()))
+        process_group_backend(state.transport), store=store,
+        world_size=info.size, rank=info.rank, timeout=timeout)
     logger.info("rank %d of %d: CUDA tensors cross ranks over %s "
                 "(local_size %d, %d card(s) visible)", info.rank, info.size,
                 state.transport, info.local_size,
@@ -194,7 +207,17 @@ def init(comm=None, process_sets=None):
         _lw.maybe_enable_from_env()
         if state.knobs.elastic and \
                 env_mod.env_str_opt(env_mod.HOROVOD_RENDEZVOUS_ADDR):
-            _require_single_process("elastic rendezvous")
+            # Elastic worker: rank identity comes from the driver's
+            # rendezvous, fresh every epoch (reference:
+            # gloo/gloo_context.cc:154-200 elastic rank re-query).
+            from ..runner.elastic.worker import (
+                RendezvousHostUpdateSource, elastic_rendezvous)
+            from . import elastic as elastic_mod
+            info = elastic_rendezvous()
+            state.elastic_enabled = True
+            src = RendezvousHostUpdateSource(
+                seed_generation=int(info.get("generation", 0)))
+            elastic_mod.set_host_update_source(src)
         state.rank_info = RankInfo.from_env()
 
         if comm is not None and not hasattr(comm, "Get_rank"):
@@ -326,15 +349,21 @@ def shutdown():
         if state.backend is not None and hasattr(state.backend, "close"):
             state.backend.close()
         state.backend = None
+        # The process group goes before the controller: a peer whose
+        # data-plane thread waits in a collective on a dead rank's
+        # neighbour is released when that neighbour's pairs close (gloo
+        # reports "connection closed by peer"), and only then can it
+        # leave the controller that rank 0's drain waits on.  Destroying
+        # the group touches no store, so a dead rank 0 cannot block it.
+        if state.process_group_owned:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+            state.process_group_owned = False
         if state.runtime is not None:
             state.runtime.detach()
             state.runtime = None
         state.tune_session = None
         state.parameter_manager = None
-        if state.process_group_owned:
-            import torch.distributed as dist
-            dist.destroy_process_group()
-            state.process_group_owned = False
         state.transport = None
         state.initialized = False
 

@@ -17,10 +17,10 @@ relay tree, metrics frames.  The port always runs the Python
 rendezvous KV client is the port's ``runner/http_server.py``: with the
 launcher's ``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT`` set, rank 0
 publishes its bound controller address there and the other ranks read
-it.  The tuning session (``HOROVOD_TUNE``, ``HOROVOD_AUTOTUNE``) and the
-elastic epoch arrive with later slices (``tune/``, ``runner/elastic/``);
-the tuning session raises a clear error where it is asked for, and
-every run is elastic epoch 0.
+it.  The tuning session (``HOROVOD_TUNE``, ``HOROVOD_AUTOTUNE``) arrives
+with a later slice (``tune/``) and raises a clear error where it is
+asked for.  The elastic epoch of a lost-rank notice is the one this
+process last rendezvoused at (``runner/elastic/worker.py``).
 
 Deltas from the reference:
   * event-driven push instead of a 1 ms gather cycle — ranks send only
@@ -2781,10 +2781,11 @@ class NetworkController(Controller):
             return None
 
         def publish(rank, reason, _client=client):
-            # The elastic worker's epoch provider arrives with the
-            # elastic slice; until then every run is epoch 0
-            # (failpoints.py makes the same call).
-            epoch = 0
+            try:
+                from ..runner.elastic.worker import current_epoch
+                epoch = current_epoch()
+            except Exception:
+                epoch = 0
             try:
                 # Per-rank key: two ranks lost in the same driver poll
                 # interval must not overwrite each other's notice.

@@ -141,9 +141,11 @@ def _current_epoch() -> int:
             return int(_epoch_provider())
         except Exception:
             return 0
-    # The elastic worker's epoch provider arrives with the elastic
-    # slice (runner/elastic/); until then every run is epoch 0.
-    return 0
+    try:
+        from ..runner.elastic.worker import current_epoch
+        return current_epoch()
+    except Exception:
+        return 0
 
 
 def set_epoch_provider(fn: Optional[Callable[[], int]]):

@@ -19,6 +19,12 @@ events, and records a done event there that ``Handle.wait`` makes the
 waiter's stream wait on.  Every tensor the runtime's stream touches is
 marked with ``record_stream``, so the caching allocator does not hand
 its memory out while that stream may still read it.
+
+A failed incarnation (a peer died, the controller broke) fails every
+pending handle with the error, and a later submission raises it as
+``HorovodInternalError``, the exception the elastic retry loop restores
+from.  ``quiesce`` waits for the data-plane streams and drops them, so
+no tensor of the old incarnation is held past its teardown.
 """
 # hvdlint-module: hot-path (instrumentation must hide behind one attribute check — docs/static_analysis.md)
 
@@ -38,6 +44,7 @@ from . import slo as _slo
 from . import straggler as _sg
 from . import timeline as tl
 from .controller import LoopbackController
+from .exceptions import HorovodInternalError
 from .message import (Request, RequestType, Response, ResponseType,
                       torch_dtype)
 from .replay import SteadyStateReplay
@@ -256,9 +263,17 @@ class BackgroundRuntime:
     # ------------------------------------------------------------------
     # submission API (called from user/framework threads)
     # ------------------------------------------------------------------
+    def _raise_error(self):
+        """Raise the incarnation's fatal error as HorovodInternalError
+        (the elastic retry loop's signal), as ``Handle.wait`` does."""
+        err = self._error
+        if isinstance(err, HorovodInternalError):
+            raise err
+        raise HorovodInternalError(str(err)) from err
+
     def submit(self, request: Request, entry: TensorTableEntry):
         if self._error is not None:
-            raise self._error
+            self._raise_error()
         if _fp.ENABLED:
             # Failpoint site: eager submission, on the caller's thread.
             # delay() models framework-side jitter; error() a rank that
@@ -340,7 +355,7 @@ class BackgroundRuntime:
                 # into DuplicateTensorNameError on retry.
                 self._error = e
                 self.tensor_queue.shutdown_flush(e)
-                raise
+                self._raise_error()
             if sent:
                 return
             # Cache miss: fall back to the negotiation queue.
@@ -353,7 +368,7 @@ class BackgroundRuntime:
     def submit_group(self, requests: List[Request],
                      entries: List[TensorTableEntry]):
         if self._error is not None:
-            raise self._error
+            self._raise_error()
         if self.replay is not None:
             # Grouped submissions negotiate (group atomicity is the
             # coordinator's job); they also invalidate a frozen cycle.
@@ -430,6 +445,11 @@ class BackgroundRuntime:
                 "quiesce: in-flight response dispatch did not finish "
                 "within 10s; proceeding with backend teardown")
         self.tensor_queue.shutdown_flush()
+        # The streams' last work must end before the tensors it touched
+        # (record_stream holds them) go back to the next incarnation.
+        for stream in self._streams.values():
+            stream.synchronize()
+        self._streams.clear()
 
     def detach(self):
         """Close the controller attachment and flush callbacks."""
@@ -638,6 +658,12 @@ class BackgroundRuntime:
                 self.timeline.end_activity(tl_name)
             for e in entries:
                 e.callback(False, err)
+            if self.state.rank_info.size > 1 and \
+                    not isinstance(err, (ValueError, TypeError)):
+                # The data plane failed under the world (a peer died in
+                # the collective): the ranks no longer agree on what ran,
+                # so every pending handle ends with the error now.
+                self._on_fatal(err)
             return
 
         if _sg.ENABLED:

@@ -20,9 +20,10 @@ identical fused batch the coordinator broadcast, as the same
 * Process sets are subgroups made on first use by their members only
   (``use_local_synchronization=True``): non-members skip the response.
 
-The device rule is decided once, at init (:func:`cuda_transport`): CPU
-tensors always ride gloo; CUDA tensors ride NCCL when every local rank
-has a card of its own, and gloo when local ranks share a card, in which
+The device rule is decided once, at init (:func:`cuda_transport`, then
+:func:`world_transport` across the ranks): CPU tensors always ride gloo;
+CUDA tensors ride NCCL when every rank has a card of its own, and gloo
+when ranks share a card, in which
 case each packed buffer crosses to host memory and back once per
 response (the reference's ``DoAllreduceCudaOnCPU``).  ``name`` is
 ``"nccl"`` or ``"gloo"`` accordingly; it labels the metrics.
@@ -33,8 +34,9 @@ unpack is ordered after the collective on the device, not on the host.
 """
 
 import functools
+import socket
 import time
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +58,36 @@ def cuda_transport(local_size: int) -> str:
     refuses two ranks on one device) or there is no card."""
     if torch.cuda.is_available() and \
             local_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def card_identity(card: Optional[int]) -> str:
+    """What names ``card`` across processes: its UUID where PyTorch
+    reports one, else this host's name and the card's index."""
+    if card is None:
+        return "cpu"
+    uuid = getattr(torch.cuda.get_device_properties(card), "uuid", None)
+    if uuid is not None:
+        return str(uuid)
+    return f"{socket.gethostname()}:{card}"
+
+
+def world_transport(store, rank: int, size: int, proposal: str,
+                    card: str) -> str:
+    """The transport every rank takes, agreed through ``store`` before
+    the process group exists: NCCL only when every rank proposed it and
+    no two ranks hold the same card.  Two host names of one machine
+    (``localhost`` and ``127.0.0.1``) each count their own local ranks,
+    so ``cuda_transport`` alone can propose NCCL for ranks that share a
+    card; one rank on gloo beside others on NCCL would hang the first
+    CUDA collective."""
+    store.set(f"hvd_transport/{rank}", f"{proposal}|{card}")
+    keys = [f"hvd_transport/{r}" for r in range(size)]
+    store.wait(keys)
+    seen = [store.get(k).decode().split("|", 1) for k in keys]
+    cards = [c for _, c in seen]
+    if all(t == "nccl" for t, _ in seen) and len(set(cards)) == size:
         return "nccl"
     return "gloo"
 
@@ -409,6 +441,13 @@ class TorchDistBackend(Backend):
     def barrier(self, ps_ranks=()):
         self.allreduce([torch.zeros(1)], "Sum", 1.0, 1.0, ps_ranks)
         return None
+
+    def close(self):
+        """Drop this incarnation's fusion buffers, pinned staging and
+        subgroups (``shutdown`` destroys the groups themselves): an
+        elastic re-init builds a new backend for the next world."""
+        self.buffers.clear()
+        self._groups.clear()
 
 
 def world1_checks(backend: TorchDistBackend,

@@ -83,6 +83,10 @@ class FusionBuffers:
             self._bufs[key] = buf
         return buf[:n]
 
+    def clear(self):
+        """Drop every buffer (a data plane's teardown)."""
+        self._bufs.clear()
+
 
 def _check(tensors: Sequence[torch.Tensor], what: str):
     dtype, device = tensors[0].dtype, tensors[0].device

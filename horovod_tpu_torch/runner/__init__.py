@@ -1,12 +1,11 @@
 """horovod_tpu_torch.runner — the launcher.
 
-Counterpart of :mod:`horovod_tpu.runner`, less its elastic half
-(``elastic_run``, ``elastic/``: the elastic slice) and
-``tpu_metadata`` (no TPU pod metadata on a GPU host).
-``horovodrun`` CLI (:mod:`.launch`,
+Counterpart of :mod:`horovod_tpu.runner`, less ``tpu_metadata`` (no TPU
+pod metadata on a GPU host).  ``horovodrun`` CLI (:mod:`.launch`,
 ``python -m horovod_tpu_torch.runner.launch``), static multi-host
-launch (:mod:`.gpu_run`), rendezvous KV service (:mod:`.http_server`),
-and the programmatic API:
+launch (:mod:`.gpu_run`), elastic launch (:mod:`.elastic_run`,
+:mod:`.elastic`), rendezvous KV service (:mod:`.http_server`), and the
+programmatic API:
 
     import horovod_tpu_torch.torch as hvd
     from horovod_tpu_torch.runner import run

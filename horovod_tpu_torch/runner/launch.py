@@ -11,8 +11,7 @@ is no mpirun/jsrun path — every run uses the TCP/HTTP control plane
   ``GLOO_SOCKET_IFNAME`` and ``NCCL_SOCKET_IFNAME`` beside
   ``HOROVOD_GLOO_IFACE`` (``gpu_run.nic_env``);
 * ``--tpu-pod`` raises: a GPU host has no TPU pod metadata;
-* elastic runs (``--host-discovery-script``) raise until the elastic
-  slice is ported (ROADMAP.md Queue 1, item 5);
+* ``--network-interface`` binds the data plane of elastic runs too;
 * ``--check-build`` reports PyTorch, CUDA cards, NCCL, gloo and ``nvcc``.
 
 Examples:
@@ -21,6 +20,8 @@ Examples:
         python train.py
     python -m horovod_tpu_torch.runner.launch -np 16 -H host1:8,host2:8 \
         python train.py
+    python -m horovod_tpu_torch.runner.launch -np 2 --min-np 2 --max-np 3 \
+        --host-discovery-script ./discover.sh python train.py
 """
 
 import argparse
@@ -261,7 +262,7 @@ def parse_args(argv=None):
                           dest="host_discovery_script",
                           action=make_override_action(override_args),
                           help="Executable printing 'host:slots' lines; "
-                               "enables elastic mode (not ported yet).")
+                               "enables elastic mode.")
     hosts_ex.add_argument("--tpu-pod", action="store_true",
                           dest="tpu_pod",
                           help="Accepted for compatibility with the JAX "
@@ -322,10 +323,27 @@ def _run_static(args):
 
 
 def _run_elastic(args):
-    raise NotImplementedError(
-        "--host-discovery-script: elastic launch (runner/elastic_run.py, "
-        "runner/elastic/) is not ported to horovod_tpu_torch yet; it comes "
-        "with the elastic slice (ROADMAP.md Queue 1, item 5)")
+    from .elastic.discovery import HostDiscoveryScript
+    from .elastic_run import launch_elastic
+    from .gpu_run import nic_env
+    discovery = HostDiscoveryScript(args.host_discovery_script,
+                                    args.slots or 1)
+    worker_env = config_parser.env_from_args(args)
+    if args.nics:
+        worker_env.update(nic_env(args.nics))
+    return launch_elastic(
+        args.command,
+        discovery=discovery,
+        np=args.np,
+        min_np=args.min_np or args.np,
+        max_np=args.max_np,
+        reset_limit=args.reset_limit,
+        elastic_timeout=args.elastic_timeout,
+        ssh_port=args.ssh_port,
+        ssh_identity_file=args.ssh_identity_file,
+        output_filename=args.output_filename,
+        verbose=1 if args.verbose else 0,
+        extra_worker_env=worker_env)
 
 
 def _run(args):

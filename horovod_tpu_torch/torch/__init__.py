@@ -9,7 +9,9 @@ tensors go into the background runtime as they are and results come back
 on the device they came in on.  Handles returned by the async API are
 :class:`horovod_tpu_torch.ops.Handle` futures; ``synchronize`` maps to
 the reference's handle-table WaitForCompletion (torch/mpi_ops.py:
-823-846).  ``SyncBatchNorm`` and ``elastic`` are not ported yet.
+823-846).  Elastic training is ``hvd.elastic``
+(:mod:`horovod_tpu_torch.torch.elastic`); ``SyncBatchNorm`` is not ported
+yet (it comes with ResNet, ROADMAP.md Queue 1, item 14).
 """
 
 import pickle
@@ -45,6 +47,7 @@ __all__ = [
     "synchronize", "poll", "join", "barrier",
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "allgather_object",
+    "elastic",
 ]
 
 
@@ -305,8 +308,12 @@ def broadcast_parameters(params, root_rank=0,
 def broadcast_optimizer_state(optimizer, root_rank=0,
                               process_set=global_process_set):
     """Broadcast an optimizer's state_dict from root (reference:
-    torch/functions.py:69-184)."""
-    state_dict = optimizer.state_dict()
+    torch/functions.py:69-184).  The root's tensors travel as CPU
+    tensors, and ``load_state_dict`` puts them on each rank's own
+    parameters' device (a pickled CUDA tensor would come back on the
+    root's card index)."""
+    state_dict = _to_cpu(optimizer.state_dict()) \
+        if basics.rank() == root_rank else None
     # Non-root ranks may have empty state (created lazily at first
     # step): materialize it from the root's pickled structure.
     full = broadcast_object(state_dict, root_rank,
@@ -314,6 +321,18 @@ def broadcast_optimizer_state(optimizer, root_rank=0,
                             process_set=process_set)
     if basics.rank() != root_rank:
         optimizer.load_state_dict(full)
+
+
+def _to_cpu(obj):
+    """``obj`` with every tensor in its dicts, lists and tuples on the
+    CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
 
 
 def broadcast_object(obj=None, root_rank=0, name="broadcast_object",
@@ -356,3 +375,4 @@ def allgather_object(obj, name="allgather_object",
 from .optimizer import (DistributedOptimizer,              # noqa: E402
                         _DistributedOptimizer,
                         _DistributedAdasumOptimizer)
+from . import elastic                                      # noqa: E402

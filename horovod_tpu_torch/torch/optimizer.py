@@ -12,21 +12,42 @@ Counterpart of :mod:`horovod_tpu.torch.optimizer`: hooks use
 grad-accumulator expand trick; the async handle is a
 :class:`horovod_tpu_torch.ops.Handle` future resolved by the background
 runtime; gradients and deltas stay on their device throughout.
+
+Under elastic training (``HOROVOD_ELASTIC=1``) the hooks are registered
+at any world size, as upstream Horovod does, since the world can grow
+past one; a world of one reduces nothing and ``synchronize`` re-arms the
+hooks.  ``reset_optimizers`` (called by ``torch.elastic.run``'s reset)
+drops the handles a failed step left behind.  Outside elastic runs the
+optimizer behaves as the JAX package's does.
 """
 
 import logging
+import weakref
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
 import torch
 
 from ..common import basics
+from ..common import env as env_mod
 from ..common.basics import (Adasum, Average, Sum, ProcessSet,
                              global_process_set)
 from .. import ops as _ops
 from .compression import Compression
 
 logger = logging.getLogger("horovod_tpu_torch.torch")
+
+# Every live _DistributedOptimizer, for reset_optimizers.
+_live_optimizers = weakref.WeakSet()
+
+
+def reset_optimizers():
+    """Drop the in-flight handles of every live ``DistributedOptimizer``
+    and re-arm its hooks.  An elastic reset calls it between shutdown and
+    init: the handles of a step that died with the old world would
+    otherwise make the next backward's hooks raise."""
+    for opt in list(_live_optimizers):
+        opt._reset_handles()
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -56,8 +77,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._synchronized = False
         self._should_synchronize = True
         self._allreduce_delay: Dict[torch.Tensor, int] = {}
-        if self._process_set.size() > 1:
+        if self._process_set.size() > 1 or \
+                env_mod.env_bool(env_mod.HOROVOD_ELASTIC):
             self._register_hooks()
+        _live_optimizers.add(self)
 
     def _register_hooks(self):
         for param_group in self.param_groups:
@@ -81,7 +104,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             assert not p.grad.requires_grad
             self._allreduce_delay[p] -= 1
             handle, ctx = None, None
-            if self._allreduce_delay[p] == 0:
+            if self._allreduce_delay[p] == 0 and \
+                    self._process_set.size() > 1:
                 handle, ctx = self._allreduce_grad_async(p)
             self._handles[p] = (handle, ctx)
         return hook
@@ -106,6 +130,9 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         """Drain all in-flight gradient reductions (reference:
         torch/optimizer.py:209-236)."""
         if self._process_set.size() <= 1:
+            # Nothing to reduce; hooks registered for an elastic world
+            # that shrank to one rank are re-armed for the next step.
+            self._reset_handles()
             self._synchronized = True
             return
         # Fire any parameters whose hooks never ran (unused in this
@@ -128,6 +155,12 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             p.grad.copy_(out.reshape(p.grad.shape))
         self._handles.clear()
         self._synchronized = True
+
+    def _reset_handles(self):
+        self._handles.clear()
+        for p in self._allreduce_delay:
+            self._allreduce_delay[p] = self.backward_passes_per_step
+        self._synchronized = False
 
     @contextmanager
     def skip_synchronize(self):

@@ -74,6 +74,35 @@ def test_cuda_transport_follows_the_cards_of_a_host(monkeypatch, available,
     assert dist_ops.process_group_backend(want) == f"cpu:gloo,cuda:{want}"
 
 
+@pytest.mark.parametrize("proposals,cards,want", [
+    (["nccl", "nccl"], ["GPU-a", "GPU-b"], "nccl"),
+    # localhost:1 and 127.0.0.1:1 on one machine: each rank counts one
+    # local rank and proposes NCCL, but both hold the same card.
+    (["nccl", "nccl"], ["GPU-a", "GPU-a"], "gloo"),
+    # localhost:2 beside 127.0.0.1:1 on one card: one proposal is gloo.
+    (["gloo", "gloo", "nccl"], ["GPU-a", "GPU-a", "GPU-a"], "gloo"),
+    (["gloo", "gloo"], ["cpu", "cpu"], "gloo"),
+])
+def test_world_transport_is_agreed_by_every_rank(proposals, cards, want):
+    import threading
+
+    import torch.distributed as dist
+    store = dist.HashStore()
+    got = [None] * len(proposals)
+
+    def rank(r):
+        got[r] = dist_ops.world_transport(store, r, len(proposals),
+                                          proposals[r], cards[r])
+    threads = [threading.Thread(target=rank, args=(r,))
+               for r in range(len(proposals))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert got == [want] * len(proposals)
+
+
 def test_backend_name_is_the_transport_and_refuses_others():
     state = _State(rank_info=RankInfo(rank=1, size=4, local_rank=1,
                                       local_size=2, cross_rank=0,

@@ -282,7 +282,8 @@ hvd.shutdown()
 @pytest.mark.parametrize("hosts", ["localhost:2", "localhost:1,127.0.0.1:1"])
 def test_launcher_transport_follows_the_slot_plan(cuda, tmp_path, hosts):
     # Two ranks on one host share the card unless the host has two: gloo.
-    # One rank on each of two hosts (both this machine here): NCCL.
+    # One rank on each of two host names of this machine: both take card
+    # 0, and the ranks agree on gloo (dist_ops.world_transport).
     import json
 
     from test_torch_port_multiproc import launcher_env, run_port_launcher
@@ -301,7 +302,9 @@ def test_launcher_transport_follows_the_slot_plan(cuda, tmp_path, hosts):
             res[r["rank"]] = r
     assert sorted(res) == [0, 1], out[-3000:]
     local_size = 2 if hosts == "localhost:2" else 1
-    want = "nccl" if local_size <= torch.cuda.device_count() else "gloo"
+    n = torch.cuda.device_count()
+    cards = [0, 1 % n] if hosts == "localhost:2" else [0, 0]
+    want = "nccl" if local_size <= n and cards[0] != cards[1] else "gloo"
     for r in res.values():
         assert r["local_size"] == local_size
         assert r["transport"] == r["backend"] == want
@@ -310,3 +313,87 @@ def test_launcher_transport_follows_the_slot_plan(cuda, tmp_path, hosts):
             assert r["cuda"] == [3.0] * 4
     if want == "gloo":
         assert all(r["cuda"] is not None for r in res.values())
+
+
+# ---------------------------------------------------------------------------
+# Elastic: state kept on the card across a restore, and the process group
+# destroyed and made again as an elastic reset does.
+# ---------------------------------------------------------------------------
+def test_torch_state_restores_a_cuda_model_bit_exact_on_its_card(cuda):
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.torch.elastic import TorchState
+    hvd.init()
+    try:
+        cfg = gpt.gpt_tiny_config(dtype=torch.bfloat16,
+                                  attention_impl="flash")
+        model = gpt.GPTLMHeadModel(cfg, seed=0)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-3),
+            named_parameters=model.named_parameters())
+        g = torch.Generator(device=cuda).manual_seed(0)
+        ids = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                            generator=g)
+
+        def step():
+            opt.zero_grad()
+            gpt.lm_loss(model(ids), ids).backward()
+            opt.step()
+
+        step()
+        state = TorchState(model, opt, step=1)
+        want = {k: v.clone() for k, v in model.state_dict().items()}
+        want_opt = {i: {k: v.clone() for k, v in st.items()}
+                    for i, st in opt.state_dict()["state"].items()}
+        step()
+        state.step = 2
+        state.restore()
+        card = torch.cuda.current_device()
+        for k, v in model.state_dict().items():
+            assert v.device == torch.device("cuda", card), k
+            assert torch.equal(v, want[k]), k
+        for i, st in opt.state_dict()["state"].items():
+            for k, v in st.items():
+                assert torch.equal(v.cpu(), want_opt[i][k].cpu()), (i, k)
+                if k != "step":
+                    assert v.device == torch.device("cuda", card), (i, k)
+        assert state.step == 1
+        # sync in a world of one keeps everything where it was.
+        state.sync()
+        assert all(torch.equal(v, want[k])
+                   for k, v in model.state_dict().items())
+    finally:
+        hvd.shutdown()
+
+
+def test_nccl_group_is_remade_three_times_through_basics(cuda,
+                                                         monkeypatch):
+    # The part of an elastic reset one card can run on the NCCL path:
+    # basics makes a one-rank NCCL group at a fresh store port, every
+    # collective is exact in it, shutdown destroys it, three times over.
+    import socket
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.common import basics
+    from horovod_tpu_torch.ops import dist_ops
+    cards = []
+    for _ in range(3):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        monkeypatch.setenv("HOROVOD_TPU_COORDINATOR",
+                           f"127.0.0.1:{s.getsockname()[1]}")
+        s.close()
+        basics.init()
+        state = basics._state()
+        try:
+            state.process_group_owned = basics._init_process_group(state)
+            assert state.process_group_owned and state.transport == "nccl"
+            state.backend = dist_ops.TorchDistBackend(state, "nccl")
+            for check, ok in dist_ops.world1_checks(state.backend,
+                                                    cuda).items():
+                assert ok, check
+            cards.append(torch.cuda.current_device())
+        finally:
+            basics.shutdown()
+        assert not dist.is_initialized()
+    assert len(set(cards)) == 1

@@ -33,6 +33,11 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import horovod_tpu_torch.runner.job_secret\n"
         "import horovod_tpu_torch.runner.safe_shell_exec\n"
         "import horovod_tpu_torch.common.metrics\n"
+        "import horovod_tpu_torch.runner.elastic_run\n"
+        "import horovod_tpu_torch.runner.elastic.worker\n"
+        "import horovod_tpu_torch.torch.elastic\n"
+        "import horovod_tpu_torch.common.elastic\n"
+        "import horovod_tpu_torch.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")

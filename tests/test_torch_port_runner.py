@@ -181,9 +181,20 @@ def test_tpu_pod_and_elastic_are_refused(monkeypatch):
     with pytest.raises(ValueError, match="no TPU pod metadata on a GPU"):
         port_launch._run(port_launch.parse_args(["-np", "2", "--tpu-pod",
                                                  "x"]))
-    with pytest.raises(NotImplementedError, match="elastic slice"):
+    # Elastic runs are ported: --host-discovery-script reaches
+    # launch_elastic (tests/test_torch_port_elastic.py holds its
+    # arguments against the JAX launcher's); only a missing -np or
+    # --min-np is refused, as in the JAX package.
+    import horovod_tpu_torch.runner.elastic_run as port_er
+    seen = []
+    monkeypatch.setattr(port_er, "launch_elastic",
+                        lambda command, **kw: seen.append(kw) or {})
+    port_launch._run(port_launch.parse_args(
+        ["-np", "2", "--host-discovery-script", "./d.sh", "x"]))
+    assert seen and seen[0]["min_np"] == 2
+    with pytest.raises(ValueError, match="-np"):
         port_launch._run(port_launch.parse_args(
-            ["-np", "2", "--host-discovery-script", "./d.sh", "x"]))
+            ["--host-discovery-script", "./d.sh", "x"]))
     with pytest.raises(ValueError, match="-np"):
         port_launch._run(port_launch.parse_args(["x"]))
 
@@ -351,11 +362,18 @@ def test_rank1_resolves_what_rank0_published(publisher, monkeypatch):
 
 
 def test_elastic_rendezvous_names_the_elastic_slice(monkeypatch):
+    # With the elastic slice ported, an elastic worker asks the driver
+    # for its rank at init; a driver that never answers ends the init
+    # with an error that names the elastic rendezvous, bounded by the
+    # start timeout, and leaves the process uninitialized.
     monkeypatch.setenv("HOROVOD_ELASTIC", "1")
     monkeypatch.setenv(env_mod.HOROVOD_RENDEZVOUS_ADDR, "127.0.0.1")
     monkeypatch.setenv(env_mod.HOROVOD_RENDEZVOUS_PORT, "1")
-    with pytest.raises(NotImplementedError, match="elastic slice"):
+    monkeypatch.setenv(env_mod.HOROVOD_START_TIMEOUT, "1")
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="elastic rendezvous"):
         basics.init()
+    assert time.monotonic() - t0 < 10
     assert not basics.is_initialized()
 
 
