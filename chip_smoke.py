@@ -3,7 +3,8 @@ this checkout, holds each against its plain PyTorch version, checks the
 GPT-2-small model at full width, trains it through ``hvd.torch`` in a
 world of one, runs the NCCL backend in a world of one (made and destroyed
 three times, as an elastic reset does), trains it at two ranks sharing
-the card, and trains it elastically at 2, 3 and 2 ranks.
+the card, trains it elastically at 2, 3 and 2 ranks, and tunes it,
+preempts it and resumes it at two ranks.
 
     python3 chip_smoke.py
 
@@ -27,6 +28,13 @@ elastic launcher, ``python -m horovod_tpu_torch.runner.launch -np 2
 prints a hosts file the phase rewrites: ``127.0.0.1:1`` joins after three
 steps at size 2, dies inside a backward after three steps at size 3, and
 the survivors restore the last commit and train on at size 2.
+
+The tune_durable phase launches ``chip_smoke.py --durable-worker`` twice
+with ``--tune --tune-profile`` and ``HOROVOD_CHECKPOINT_DIR``: launch A
+searches, freezes, takes three more steps and commits durably every
+second step, then a SIGTERM to the launcher
+preempts it and the hook's final commit lands; launch B loads the
+profile without a search and resumes from that commit.
 """
 
 import ast
@@ -61,6 +69,8 @@ sys.path.insert(0, REPO)
 
 import horovod_tpu_torch.torch as hvd  # noqa: E402
 from horovod_tpu_torch import kernels  # noqa: E402
+from horovod_tpu_torch.checkpoint import (  # noqa: E402
+    committed_steps, preemption, read_manifest, step_dir)
 from horovod_tpu_torch.common import basics  # noqa: E402
 from horovod_tpu_torch.common.fusion import fuse_responses  # noqa: E402
 from horovod_tpu_torch.common.message import (  # noqa: E402
@@ -70,6 +80,7 @@ from horovod_tpu_torch.ops import dist_ops  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from horovod_tpu_torch.ops import fusion_buffer as fb  # noqa: E402
 from horovod_tpu_torch.runner import job_secret  # noqa: E402
+from horovod_tpu_torch.runner import safe_shell_exec  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -814,6 +825,17 @@ def result_lines(text: str) -> dict:
     return results
 
 
+def spawned_walls(out: str) -> dict:
+    """Wall clock at which the launcher started each rank's command, from
+    its ``--verbose`` log (logging's local-time asctime, to the ms)."""
+    spawned = {}
+    for m in re.finditer(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) \S+ "
+                         r"INFO: launching rank (\d+) on ", out, re.M):
+        spawned[int(m.group(3))] = time.mktime(time.strptime(
+            m.group(1), "%Y-%m-%d %H:%M:%S")) + int(m.group(2)) / 1e3
+    return spawned
+
+
 def launch_2rank(log_dir: str) -> dict:
     """``python -m horovod_tpu_torch.runner.launch -np 2 -H localhost:2``
     of this script's ``--train-worker``, with ``HOROVOD_METRICS_PORT=0``;
@@ -850,16 +872,9 @@ def launch_2rank(log_dir: str) -> dict:
     reader.join(timeout=30)
     out = "".join(lines)
     finished = re.search(r"all workers finished in [\d.]+s: (\{.*\})", out)
-    # The launcher's ``--verbose`` log stamps the moment it starts each
-    # rank's command (logging's local-time asctime, to the millisecond).
-    spawned = {}
-    for m in re.finditer(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) \S+ "
-                         r"INFO: launching rank (\d+) on ", out, re.M):
-        spawned[int(m.group(3))] = time.mktime(time.strptime(
-            m.group(1), "%Y-%m-%d %H:%M:%S")) + int(m.group(2)) / 1e3
     return {"cmd": cmd, "output": out, "returncode": proc.returncode,
             "rank_codes": ast.literal_eval(finished.group(1))
-            if finished else None, "spawned": spawned,
+            if finished else None, "spawned": spawned_walls(out),
             "seconds": time.perf_counter() - t0, "wall0": wall0,
             "first_result_s": first_result[0] if first_result else None}
 
@@ -1276,6 +1291,406 @@ def phase_elastic() -> dict:
     return {"flash": flash, "fusion": fusion}
 
 
+# ---------------------------------------------------------------------------
+# tune_durable: GPT-2 small tuned, preempted by SIGTERM and resumed, at two
+# ranks through the launcher
+# ---------------------------------------------------------------------------
+DURABLE_AFTER_FREEZE = 3   # launch A's steps after the session froze
+DURABLE_FREEZE_BY = 8      # launch A fails unless frozen by this step
+DURABLE_RESUME_STEPS = 2   # launch B's steps after its restore
+DURABLE_HOLD_S = 300       # launch A waits this long for the SIGTERM
+
+
+def durable_worker():
+    """One rank of the tune_durable phase (``--durable-worker``), started
+    by the launcher with ``--tune --tune-profile`` and
+    ``HOROVOD_CHECKPOINT_DIR``: GPT-2 small at full width through
+    ``DistributedOptimizer`` (bf16 compute, flash attention, AdamW) in a
+    ``TorchState``, a ``durable_checkpointer(state, every_n_commits=2,
+    keep=2)`` and the preemption hook, after ``broadcast_parameters``.
+
+    Launch A (cold start) trains until every rank sees the session
+    frozen, then ``DURABLE_AFTER_FREEZE`` more steps (it fails unless
+    frozen by step ``DURABLE_FREEZE_BY``), waits for its last durable
+    commit, hashes the committed state and
+    sleeps until the phase's SIGTERM; the hook's final commit reports its
+    step id.  Launch B restores, hashes what it restored and trains
+    ``DURABLE_RESUME_STEPS`` steps.  Each rank appends JSON lines to
+    ``$CHIP_DURABLE_DIR/<launch>.rank<r>.jsonl``: the launcher's output
+    pipe may be gone by the time the final commit lands."""
+    import horovod_tpu_torch
+    from horovod_tpu_torch.checkpoint import install_preemption_hook
+    from horovod_tpu_torch.torch.elastic import (TorchState,
+                                                 durable_checkpointer)
+    wall = {"started": STARTED, "init_begin": time.time()}
+    hvd.init()
+    wall["init_end"] = time.time()
+    rank = hvd.rank()
+    launch = os.environ["CHIP_DURABLE_LAUNCH"]
+    path = os.path.join(os.environ["CHIP_DURABLE_DIR"],
+                        f"{launch}.rank{rank}.jsonl")
+
+    def report(event, **fields):
+        with open(path, "a") as f:
+            f.write(json.dumps(dict(fields, event=event, rank=rank,
+                                    wall=time.time())) + "\n")
+
+    st = basics._state()
+    rt, backend = st.runtime, st.backend
+    cfg = gpt.gpt2_small_config(attention_impl="flash", dropout=0.0)
+    model = gpt.GPTLMHeadModel(cfg, seed=0).train()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    d2h_ms = []
+
+    class State(TorchState):
+        # Times the copy of the committed snapshot to host numpy.
+        def durable_state_dict(self):
+            t0 = time.perf_counter()
+            items = super().durable_state_dict()
+            d2h_ms.append((time.perf_counter() - t0) * 1e3)
+            return items
+
+    state = State(model, opt, step=0)
+    ckpt = durable_checkpointer(state, every_n_commits=2, keep=2)
+    t0 = time.perf_counter()
+    restored = ckpt.maybe_restore()
+    restore_s = time.perf_counter() - t0
+    report("start", restored=restored, step=state.step,
+           restore_s=restore_s, launcher_wall=wall,
+           sha=state_sha256(model, opt) if restored is not None else None,
+           tune=horovod_tpu_torch.tune_status(),
+           profile_loaded=st.knobs.tune_profile_loaded,
+           hold=rt.replay.stats()["tuning_hold"],
+           cycles_per_sample=st.knobs.tune_cycles_per_sample)
+    committed_sha = [None]
+
+    class Final:
+        """The hook's checkpointer: the final commit, then its report."""
+
+        def finalize(self, timeout=None, reason="shutdown"):
+            began, t0 = time.time(), time.perf_counter()
+            n = len(d2h_ms)
+            sid = ckpt.finalize(timeout=timeout, reason=reason)
+            report("final", id=sid, sha=committed_sha[0], began=began,
+                   seconds=time.perf_counter() - t0, d2h_ms=d2h_ms[n:],
+                   save_seconds=basics.metrics_snapshot()["histograms"]
+                   .get("hvd_ckpt_save_seconds", {}))
+            return sid
+
+    install_preemption_hook(Final())
+    g = torch.Generator(device="cuda").manual_seed(100 + rank)
+    ids = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
+                        generator=g)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    fa.launches_by_body.update({body: 0 for body in fa.launches_by_body})
+    fb.launches.update({k: 0 for k in fb.launches})
+    fb.plain_calls.update({k: 0 for k in fb.plain_calls})
+    backend.stats.update({k: 0 for k in backend.stats})
+    report("ready", wall_steps=time.time())
+    steps = DURABLE_RESUME_STEPS if restored is not None \
+        else DURABLE_FREEZE_BY + DURABLE_AFTER_FREEZE
+    frozen_at = None
+    for i in range(steps):
+        flash0, flash_all0 = fa.launches_by_body[fa.BODY_WGMMA], fa.launches
+        fusion0, plain0 = dict(fb.launches), dict(fb.plain_calls)
+        stats0, ctrl0 = dict(backend.stats), dict(rt.controller.stats)
+        phase_before = horovod_tpu_torch.tune_status()["phase"]
+        replay_before = rt.replay.stats()["active"]
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = gpt.lm_loss(model(ids), ids)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        counts = {
+            "flash": fa.launches_by_body[fa.BODY_WGMMA] - flash0,
+            "flash_all_bodies": fa.launches - flash_all0,
+            "fusion": {k: fb.launches[k] - fusion0[k] for k in fusion0},
+            "plain": {k: fb.plain_calls[k] - plain0[k] for k in plain0},
+            "responses": sum(backend.stats[k] - stats0[k] for k in
+                             ("flat_allreduces", "hierarchical_allreduces")),
+            "bytes": backend.stats["allreduce_bytes"] -
+            stats0["allreduce_bytes"],
+            "uplink_frames": sum(rt.controller.stats[k] - ctrl0[k]
+                                 for k in ("rq_frames", "ch_frames"))}
+        tune = horovod_tpu_torch.tune_status()
+        replay_after = rt.replay.stats()["active"]
+        # Every rank stops at the same step: the freeze is agreed.
+        frozen = hvd.allreduce(torch.tensor(
+            [float(tune["phase"] == "frozen")]), op=hvd.Min,
+            name="durable.frozen").item() > 0
+        state.step += 1
+        t0 = time.perf_counter()
+        state.commit()
+        commit_ms = (time.perf_counter() - t0) * 1e3
+        n = len(d2h_ms)
+        t0 = time.perf_counter()
+        sid = ckpt.commit()
+        durable_ms = (time.perf_counter() - t0) * 1e3
+        report("step", step=state.step, loss=loss.item(), step_ms=step_ms,
+               phase=[phase_before, tune["phase"]],
+               replay=[replay_before, replay_after], frozen=frozen,
+               commit_ms=commit_ms, durable_id=sid,
+               durable_call_ms=durable_ms, d2h_ms=d2h_ms[n:],
+               tune=tune if rank == 0 else None,
+               cycle_time_ms=st.knobs.cycle_time_ms, **counts)
+        if restored is not None:
+            continue
+        if frozen_at is None and frozen:
+            frozen_at = i
+        if frozen_at is None and i + 1 >= DURABLE_FREEZE_BY:
+            raise RuntimeError(f"tune_durable: the session did not freeze "
+                               f"in {DURABLE_FREEZE_BY} steps")
+        if frozen_at is not None and i - frozen_at >= DURABLE_AFTER_FREEZE:
+            break
+    ckpt.wait()
+    if restored is not None:
+        report("done", step=state.step,
+               tune=horovod_tpu_torch.tune_status())
+        hvd.shutdown()
+        return
+    committed_sha[0] = state_sha256(model, opt)
+    report("held", step=state.step, sha=committed_sha[0],
+           frozen_at=frozen_at, max_memory_allocated=
+           torch.cuda.max_memory_allocated(),
+           save_seconds=basics.metrics_snapshot()["histograms"]
+           .get("hvd_ckpt_save_seconds", {}))
+    time.sleep(DURABLE_HOLD_S)
+    raise RuntimeError("tune_durable: no SIGTERM came")
+
+
+def read_reports(directory: str, launch: str) -> dict:
+    out = {}
+    for rank in (0, 1):
+        p = os.path.join(directory, f"{launch}.rank{rank}.jsonl")
+        out[rank] = [json.loads(line) for line in open(p)] \
+            if os.path.exists(p) else []
+    return out
+
+
+def events(reports: dict, event: str) -> dict:
+    return {r: [e for e in evs if e["event"] == event]
+            for r, evs in reports.items()}
+
+
+def start_launcher(cmd, env):
+    lines = []
+    proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    return proc, lines, reader
+
+
+def phase_tune_durable() -> dict:
+    """GPT-2 small at two ranks on this card, twice through the launcher
+    (``-np 2 -H localhost:2 --tune --tune-profile``, with
+    ``HOROVOD_CHECKPOINT_DIR``).  Launch A searches, freezes and takes
+    three more steps, then the phase sends SIGTERM to the launcher, which
+    passes it on to its workers while it serves their final commit.  Launch B must load
+    the profile without a search and restore A's final commit with the
+    same hashes on both ranks.  Emits the ``tune_durable`` line and
+    returns the kernel launches of both launches' steps."""
+    with tempfile.TemporaryDirectory() as d:
+        ckpt_dir, profile = os.path.join(d, "ckpt"), \
+            os.path.join(d, "profile.json")
+        env = dict(os.environ, PYTHONPATH=REPO, CHIP_DURABLE_DIR=d,
+                   HOROVOD_CHECKPOINT_DIR=ckpt_dir)
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+               "-np", "2", "-H", "localhost:2", "--verbose", "--tune",
+               "--tune-profile", profile, sys.executable,
+               os.path.abspath(__file__), "--durable-worker"]
+        runs = {}
+        for launch in ("A", "B"):
+            wall0 = time.time()
+            proc, lines, reader = start_launcher(
+                cmd, dict(env, CHIP_DURABLE_LAUNCH=launch))
+            deadline = time.monotonic() + WORKER_TIMEOUT_S
+            sigterm = None
+            try:
+                if launch == "A":
+                    while not all(events(read_reports(d, "A"), "held")
+                                  .values()):
+                        if proc.poll() is not None or \
+                                time.monotonic() > deadline:
+                            raise RuntimeError(
+                                "tune_durable: launch A ended before its "
+                                "ranks held:\n" + "".join(lines)[-6000:])
+                        time.sleep(0.2)
+                    sigterm = time.time()
+                    proc.send_signal(signal.SIGTERM)
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"tune_durable: launch {launch} did not "
+                                   "end:\n" + "".join(lines)[-6000:])
+            finally:
+                kill_tree(proc.pid)
+            reader.join(timeout=30)
+            out = "".join(lines)
+            want_rc = -signal.SIGTERM if launch == "A" else 0
+            if proc.returncode != want_rc:
+                raise RuntimeError(f"tune_durable: launch {launch} exited "
+                                   f"{proc.returncode}, not {want_rc}:\n"
+                                   f"{out[-6000:]}")
+            runs[launch] = {"reports": read_reports(d, launch),
+                            "wall0": wall0, "sigterm": sigterm,
+                            "spawned": spawned_walls(out)}
+        with open(profile) as f:
+            frozen_profile = json.load(f)
+        manifests = {step: sum(sh["nbytes"] for sh in read_manifest(
+            step_dir(ckpt_dir, step)).shards)
+            for step in committed_steps(ckpt_dir)}
+    a, b = runs["A"]["reports"], runs["B"]["reports"]
+    steps_a, steps_b = events(a, "step"), events(b, "step")
+    finals, helds = events(a, "final"), events(a, "held")
+    starts_b = events(b, "start")
+    # Every step and both launches' ends, before anything is checked.
+    emit("tune_durable_steps", columns=[
+        "step", "phase before/after", "replay before/after", "responses",
+        "uplink frames", "step ms", "durable id", "d2h ms"],
+        steps={launch: {str(r): [
+            [e["step"], e["phase"], e["replay"], e["responses"],
+             e["uplink_frames"], round(e["step_ms"], 2), e["durable_id"],
+             [round(ms, 2) for ms in e["d2h_ms"]]]
+            for e in events(runs[launch]["reports"], "step")[r]]
+            for r in (0, 1)} for launch in ("A", "B")},
+        ends={launch: {str(r): [
+            {k: v for k, v in e.items() if k not in ("save_seconds",)}
+            for e in evs if e["event"] in ("start", "held", "final",
+                                           "done")]
+            for r, evs in runs[launch]["reports"].items()}
+            for launch in ("A", "B")})
+    # --- launch A: search, freeze, replay, durable commits, final commit
+    for r in (0, 1):
+        assert len(finals[r]) == 1 and len(helds[r]) == 1, (finals, helds)
+        assert all(math.isfinite(e["loss"]) for e in steps_a[r])
+        assert events(a, "start")[r][0]["restored"] is None
+        assert events(a, "start")[r][0]["hold"], "A must start searching"
+    frozen_at = helds[0][0]["frozen_at"]
+    assert frozen_at is not None and frozen_at == helds[1][0]["frozen_at"]
+    final_id = finals[0][0]["id"]
+    assert final_id is not None and finals[1][0]["id"] == final_id, finals
+    durable_ids = [e["durable_id"] for e in steps_a[0]
+                   if e["durable_id"] is not None]
+    assert durable_ids and final_id == durable_ids[-1] + 1, \
+        (durable_ids, final_id)
+    # --- launch B: the profile without a search, A's final commit back
+    for r in (0, 1):
+        s0 = starts_b[r][0]
+        assert s0["restored"] == final_id, (s0, final_id)
+        assert s0["sha"] == finals[r][0]["sha"] == finals[0][0]["sha"], \
+            (s0["sha"], finals)
+        assert s0["profile_loaded"] and not s0["hold"], s0
+        assert s0["tune"]["phase"] == "frozen", s0["tune"]
+        assert len(steps_b[r]) == DURABLE_RESUME_STEPS, steps_b[r]
+        for e in steps_b[r]:
+            assert math.isfinite(e["loss"]) and \
+                e["phase"] == ["frozen", "frozen"], e
+        assert events(b, "done")[r][0]["tune"]["phase"] == "frozen"
+    assert starts_b[1][0]["tune"]["profile_loaded"], starts_b[1][0]["tune"]
+    assert all(c["samples"] == 0 for c in
+               starts_b[0][0]["tune"]["classes"].values()), starts_b[0][0]
+    # --- kernels: every step ran both kernels and no plain version
+    for e in steps_a[0] + steps_a[1] + steps_b[0] + steps_b[1]:
+        assert e["flash"] >= 12 and e["flash_all_bodies"] == e["flash"], e
+        assert e["fusion"]["pack"] == e["fusion"]["unpack"] > 0, e
+        assert e["plain"] == {"pack": 0, "unpack": 0}, e
+
+    def split(evs):
+        """The first step (cold: allocations, the first pinned copies) on
+        its own, then the steps that began searching, began frozen
+        without replay, and replayed from start to end."""
+        groups = {"first": evs[:1], "search": [], "frozen": [],
+                  "replay": []}
+        for e in evs[1:]:
+            key = "search" if e["phase"][0] != "frozen" else \
+                "replay" if all(e["replay"]) else "frozen"
+            groups[key].append(e)
+        return {k: {"steps": len(v),
+                    "responses_per_step": [x["responses"] for x in v],
+                    "uplink_frames_per_step": [x["uplink_frames"]
+                                               for x in v],
+                    "median_step_ms": statistics.median(
+                        [x["step_ms"] for x in v]) if v else None}
+                for k, v in groups.items()}
+
+    first_step = {launch: {r: min(e["wall"] for e in runs[launch]
+                                  ["reports"][r] if e["event"] == "step")
+                           - runs[launch]["wall0"] for r in (0, 1)}
+                  for launch in ("A", "B")}
+    tune0 = [e["tune"] for e in steps_a[0]]
+    frozen_tune = tune0[frozen_at]
+    launched_by = " ".join(["python"] + cmd[1:11])
+    row = {
+        "config": "gpt2_small bf16 flash AdamW, batch 8 x 1024 per rank, "
+                  "2 ranks sharing one card over gloo",
+        "launched_by": launched_by,
+        "rounds_per_window": events(a, "start")[0][0]["cycles_per_sample"],
+        "steps_to_freeze": frozen_at + 1,
+        "rounds_to_freeze": {c: v["rounds"] for c, v in
+                             frozen_tune["classes"].items()},
+        "samples_to_freeze": {c: v["samples"] for c, v in
+                              frozen_tune["classes"].items()},
+        "frozen_knobs": {c: v["knobs"] for c, v in
+                         frozen_profile["classes"].items()},
+        "frozen_worker_knobs": frozen_profile["worker"],
+        "per_rank": {str(r): split(steps_a[r]) for r in (0, 1)},
+        "durable_commits": len(durable_ids),
+        "durable_ids": durable_ids,
+        "d2h_ms_per_commit": {str(r): [ms for e in steps_a[r]
+                                       for ms in e["d2h_ms"]]
+                              for r in (0, 1)},
+        "save_seconds": {str(r): {
+            k: {x: v[x] for x in ("count", "sum", "min", "max")}
+            for k, v in finals[r][0]["save_seconds"].items()}
+            for r in (0, 1)},
+        "bytes_per_checkpoint": manifests,
+        "final_commit": {
+            "id": final_id,
+            "seconds_from_sigterm": {str(r): finals[r][0]["wall"] -
+                                     runs["A"]["sigterm"] for r in (0, 1)},
+            "finalize_seconds": {str(r): finals[r][0]["seconds"]
+                                 for r in (0, 1)},
+            "final_d2h_ms": {str(r): finals[r][0]["d2h_ms"]
+                             for r in (0, 1)},
+            "launcher_grace_s":
+            safe_shell_exec.PREEMPTION_TERMINATION_TIME_S,
+            "hook_grace_s": preemption.DEFAULT_GRACE_S},
+        "restore_seconds": {str(r): starts_b[r][0]["restore_s"]
+                            for r in (0, 1)},
+        "resumed_step": starts_b[0][0]["step"],
+        "launch_to_first_step_s": {k: {str(r): t for r, t in v.items()}
+                                   for k, v in first_step.items()},
+        "launcher_s": {launch: {str(r): t - runs[launch]["wall0"]
+                                for r, t in runs[launch]["spawned"].items()}
+                       for launch in ("A", "B")},
+        "losses_b": {str(r): [e["loss"] for e in steps_b[r]]
+                     for r in (0, 1)},
+        "flash_per_step": sorted({e["flash"] for r in (0, 1)
+                                  for e in steps_a[r] + steps_b[r]}),
+        "packs_equal_unpacks_no_plain": True,
+        "max_memory_allocated": {str(r): helds[r][0]["max_memory_allocated"]
+                                 for r in (0, 1)},
+        "sha256": finals[0][0]["sha"],
+    }
+    emit("tune_durable", **row)
+    every = [e for r in (0, 1) for e in steps_a[r] + steps_b[r]]
+    return {"flash": sum(e["flash"] for e in every),
+            "fusion": sum(e["fusion"]["pack"] + e["fusion"]["unpack"]
+                          for e in every)}
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -1285,6 +1700,9 @@ def main():
         return
     if sys.argv[1:] == ["--elastic-worker"]:
         elastic_worker()
+        return
+    if sys.argv[1:] == ["--durable-worker"]:
+        durable_worker()
         return
     CARD = card()
     emit("device", kind=torch.cuda.get_device_name(0),
@@ -1298,8 +1716,11 @@ def main():
     phase_nccl_world1()
     launches = phase_train_2rank()
     elastic = phase_elastic()
-    flash_row["launches"] = launches["flash"] + elastic["flash"]
-    fusion_row["launches"] = launches["fusion"] + elastic["fusion"]
+    durable = phase_tune_durable()
+    flash_row["launches"] = launches["flash"] + elastic["flash"] + \
+        durable["flash"]
+    fusion_row["launches"] = launches["fusion"] + elastic["fusion"] + \
+        durable["fusion"]
     print(CARD, flush=True)
     print(json.dumps({"kernels": [flash_row, fusion_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

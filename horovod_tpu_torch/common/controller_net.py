@@ -17,9 +17,9 @@ relay tree, metrics frames.  The port always runs the Python
 rendezvous KV client is the port's ``runner/http_server.py``: with the
 launcher's ``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT`` set, rank 0
 publishes its bound controller address there and the other ranks read
-it.  The tuning session (``HOROVOD_TUNE``, ``HOROVOD_AUTOTUNE``) arrives
-with a later slice (``tune/``) and raises a clear error where it is
-asked for.  The elastic epoch of a lost-rank notice is the one this
+it.  Rank 0 builds the tuning session (``HOROVOD_TUNE``, ``tune/``) or
+the legacy parameter manager (``HOROVOD_AUTOTUNE``) as the reference
+does.  The elastic epoch of a lost-rank notice is the one this
 process last rendezvoused at (``runner/elastic/worker.py``).
 
 Deltas from the reference:
@@ -2659,17 +2659,50 @@ class NetworkController(Controller):
             port = 0
             if addr and ":" in addr:
                 port = int(addr.rsplit(":", 1)[1])
-            if state.knobs.tune or state.knobs.autotune:
-                # The tuning session (horovod_tpu/tune) and the legacy
-                # GP parameter manager arrive with the port's tune/
-                # slice; never run a world without the tuner the user
-                # asked for.
-                raise NotImplementedError(
-                    "HOROVOD_TUNE / HOROVOD_AUTOTUNE: the autotuner "
-                    "(tune/, parameter_manager) is not ported to "
-                    "horovod_tpu_torch yet; it comes with the tune/ slice "
-                    "(ROADMAP.md Queue 1, item 7)")
-            self.server = self._make_server(state, port)
+            param_manager = None
+            tune_session = None
+            if state.knobs.tune:
+                # Autotune-then-freeze (horovod_tpu/tune): a valid
+                # profile at HOROVOD_TUNE_PROFILE means the search
+                # already ran — build a pre-frozen session (per-class
+                # thresholds from the artifact, startup announcement
+                # says tuning_active=false) so restarts and elastic
+                # resizes skip the re-search.  Takes precedence over
+                # the legacy HOROVOD_AUTOTUNE path.
+                from ..tune.session import TuningSession
+                # The SAME parsed artifact Knobs.from_env adopted —
+                # never a second read of the file, which could race a
+                # concurrent freeze replacing it and hand the session
+                # different knobs than the ones already applied.
+                prof = getattr(state.knobs, "tune_profile_obj", None)
+                if prof is not None:
+                    tune_session = TuningSession.from_profile(
+                        state.knobs, self.size, prof,
+                        profile_path=state.knobs.tune_profile)
+                else:
+                    tune_session = TuningSession(
+                        state.knobs, self.size,
+                        profile_path=state.knobs.tune_profile)
+                state.tune_session = tune_session
+            elif state.knobs.autotune:
+                from .parameter_manager import ParameterManager
+                param_manager = ParameterManager(
+                    warmup_samples=state.knobs.autotune_warmup_samples,
+                    steps_per_sample=state.knobs.autotune_steps_per_sample,
+                    bayes_opt_max_samples=(
+                        state.knobs.autotune_bayes_opt_max_samples),
+                    gp_noise=state.knobs.autotune_gaussian_process_noise,
+                    initial_fusion_bytes=(
+                        state.knobs.fusion_threshold_bytes),
+                    initial_cycle_ms=state.knobs.cycle_time_ms,
+                    # Explicit env settings pin the categorical dims.
+                    fixed_hierarchical=state.knobs.hierarchical_allreduce,
+                    fixed_cache=(False if state.knobs.cache_capacity == 0
+                                 else None),
+                    log_path=state.knobs.autotune_log)
+                state.parameter_manager = param_manager
+            self.server = self._make_server(state, port, param_manager,
+                                            tune_session)
             self._publish_actual_addr(addr, self.server.port)
             host = "127.0.0.1"
             self._addr = (host, self.server.port)
@@ -2731,11 +2764,16 @@ class NetworkController(Controller):
         in-stream between executed batches for free."""
         self._on_response = fn
 
-    def _make_server(self, state, port):
+    def _make_server(self, state, port, param_manager,
+                     tune_session=None):
         """The Python CoordinatorServer, always: the native C++
-        coordinator (horovod_tpu/native) is not ported, so
-        ``HOROVOD_TPU_NATIVE`` set to a true value raises instead of
-        silently running the Python coordinator in its place."""
+        coordinator (horovod_tpu/native) is not ported yet (ROADMAP.md
+        Queue 1, item 6), so ``HOROVOD_TPU_NATIVE`` set to a true value
+        raises instead of silently running the Python coordinator in
+        its place.  The tuner needs this server in any case: the
+        parameter manager and the tuning session score every round
+        in-line and announce their knobs in PA frames.  The reference's
+        strict-native refusals of the tuner come with item 6."""
         allow_ephemeral = self._rendezvous_client() is not None
         stall_warn = 0.0 if state.knobs.stall_check_disable else \
             state.knobs.stall_warning_time_s
@@ -2757,6 +2795,7 @@ class NetworkController(Controller):
             timeline=state.timeline,
             elastic=state.knobs.elastic,
             allow_ephemeral_fallback=allow_ephemeral,
+            param_manager=param_manager,
             cache_capacity=state.knobs.cache_capacity,
             stall_warning_time_s=stall_warn,
             stall_shutdown_time_s=state.knobs.stall_shutdown_time_s,
@@ -2767,6 +2806,7 @@ class NetworkController(Controller):
             registration_timeout_s=state.knobs.registration_timeout_s,
             fanout=getattr(state.knobs, "coord_fanout", 0),
             on_rank_lost=self._make_rank_lost_publisher(state),
+            tune_session=tune_session,
             on_rank_slow=self._make_rank_slow_publisher())
 
     def _make_rank_lost_publisher(self, state):

@@ -716,8 +716,13 @@ class Knobs:
             coord_fanout=max(0, env_int(HOROVOD_COORD_FANOUT, 0)),
         )
         if knobs.tune_profile:
-            raise NotImplementedError(
-                "HOROVOD_TUNE_PROFILE: the autotuner (tune/) is not "
-                "ported to horovod_tpu_torch yet; it comes with the tune/ "
-                "slice (ROADMAP.md Queue 1, item 7)")
+            # A valid frozen profile at the path means the search is
+            # already done: adopt its knobs and skip straight to
+            # replay.  A missing/corrupt file means "tune and write it
+            # here" (try_load_profile is deliberately forgiving).
+            from ..tune.profile import try_load_profile
+            prof = try_load_profile(knobs.tune_profile)
+            if prof is not None:
+                knobs.apply_tuned_profile(prof)
+                knobs.tune_profile_obj = prof
         return knobs

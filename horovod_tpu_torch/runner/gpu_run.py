@@ -31,6 +31,7 @@ import functools
 import logging
 import os
 import shlex
+import signal
 import sys
 import threading
 import time
@@ -130,6 +131,18 @@ def secret_transport(cmd: str, secret: str, local: bool):
     wrapped = (f"IFS= read -r {job_secret.ENV}; "
                f"export {job_secret.ENV}; {cmd}")
     return wrapped, None, (secret + "\n").encode()
+
+
+def _pass_on_sigterm(event: threading.Event):
+    """Make a SIGTERM to the launcher set ``event`` instead of killing
+    it; returns the handler it replaced, or None off the main thread."""
+    if threading.current_thread() is not threading.main_thread():
+        return None
+
+    def _on_term(signum, frame):
+        logger.warning("SIGTERM: passing it on to every worker")
+        event.set()
+    return signal.signal(signal.SIGTERM, _on_term)
 
 
 class WorkerResults:
@@ -236,6 +249,13 @@ def launch_static(command: List[str],
     run_command = " ".join(shlex.quote(c) for c in command)
     results = WorkerResults(len(slots))
     events = [results.any_failed] if kill_all_on_failure else []
+    # A preemption's SIGTERM to the launcher goes on to every worker's
+    # tree (SIGTERM, then SIGKILL after the preemption hook's grace), and
+    # the launcher lives until they exit: their final checkpoint commit
+    # needs its rendezvous KV.  Then the launcher's own TERM applies.
+    preempted = threading.Event()
+    events.append(preempted)
+    previous_term = _pass_on_sigterm(preempted)
 
     def _run_slot(slot: SlotInfo):
         cmd = slot_command(run_command, slot, env or dict(os.environ),
@@ -258,7 +278,8 @@ def launch_static(command: List[str],
             code = safe_shell_exec.execute(
                 cmd, env=exec_env, stdin_data=stdin_data,
                 stdout=stdout, stderr=stderr, index=slot.rank,
-                events=events)
+                events=events, event_grace_s={
+                    preempted: safe_shell_exec.PREEMPTION_TERMINATION_TIME_S})
         finally:
             for f in (stdout, stderr):
                 if f:
@@ -273,6 +294,10 @@ def launch_static(command: List[str],
     for t in threads:
         t.join()
     server.stop()
+    if previous_term is not None:
+        signal.signal(signal.SIGTERM, previous_term)
+        if preempted.is_set():
+            signal.raise_signal(signal.SIGTERM)
     codes = results.exit_codes
     if verbose:
         logger.info("all workers finished in %.1fs: %s",

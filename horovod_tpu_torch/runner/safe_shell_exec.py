@@ -8,7 +8,13 @@ failing) or on driver exit.  Uses ``psutil`` for recursive child
 termination instead of a middleman process; without ``psutil`` it
 signals the child's process group.
 
-Counterpart of :mod:`horovod_tpu.runner.safe_shell_exec`, copied.
+Counterpart of :mod:`horovod_tpu.runner.safe_shell_exec`, copied, except
+for three things a preempted worker's final checkpoint commit needs:
+``execute`` takes a grace per event and waits for a terminating watcher
+up to it (the reference returns one second after the shell exits, while
+the workers under it may still be finishing), and without ``psutil``
+``terminate_process_tree`` waits for the process group up to the grace
+before it kills what is left (the reference signals it and returns).
 """
 
 import logging
@@ -18,23 +24,44 @@ import subprocess
 import sys
 import threading
 import time
-from typing import IO, List, Optional
+from typing import IO, Dict, List, Optional
 
 logger = logging.getLogger("horovod_tpu_torch.exec")
 
 GRACEFUL_TERMINATION_TIME_S = 5
+# The grace a preempted worker gets: install_preemption_hook's default
+# grace (checkpoint/preemption.py DEFAULT_GRACE_S, 20 s) and the 5 s its
+# bounded join allows past it, with a margin.
+PREEMPTION_TERMINATION_TIME_S = 30
+
+
+def _terminate_process_group(pid: int, grace_s: float):
+    try:
+        pgid = os.getpgid(pid)
+        os.killpg(pgid, signal.SIGTERM)
+    except (ProcessLookupError, PermissionError):
+        return
+    deadline = time.monotonic() + grace_s
+    while time.monotonic() < deadline:
+        try:
+            os.killpg(pgid, 0)
+        except (ProcessLookupError, PermissionError):
+            return
+        time.sleep(0.1)
+    try:
+        os.killpg(pgid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
 
 
 def terminate_process_tree(pid: int,
                            grace_s: float = GRACEFUL_TERMINATION_TIME_S):
-    """SIGTERM the process and all descendants, then SIGKILL leftovers."""
+    """SIGTERM the process and all descendants, wait up to ``grace_s``
+    for them, then SIGKILL leftovers."""
     try:
         import psutil
     except ImportError:
-        try:
-            os.killpg(os.getpgid(pid), signal.SIGTERM)
-        except (ProcessLookupError, PermissionError):
-            pass
+        _terminate_process_group(pid, grace_s)
         return
     try:
         root = psutil.Process(pid)
@@ -76,11 +103,15 @@ def execute(command: str,
             index: Optional[int] = None,
             events: Optional[List[threading.Event]] = None,
             prefix_output_with_timestamp: bool = False,
-            stdin_data: Optional[bytes] = None) -> int:
+            stdin_data: Optional[bytes] = None,
+            event_grace_s: Optional[Dict[threading.Event, float]] = None
+            ) -> int:
     """Run ``command`` through a shell in a new session; stream output;
-    kill the whole tree if any event fires.  Returns the exit code.
-    ``stdin_data`` is written to the child's stdin and the pipe closed
-    (used to hand secrets to remote shells without touching argv)."""
+    kill the whole tree if any event fires, after the grace
+    ``event_grace_s`` gives that event (``GRACEFUL_TERMINATION_TIME_S``
+    by default).  Returns the exit code.  ``stdin_data`` is written to
+    the child's stdin and the pipe closed (used to hand secrets to
+    remote shells without touching argv)."""
     proc = subprocess.Popen(
         command, shell=True, env=env,
         stdin=subprocess.PIPE if stdin_data is not None else None,
@@ -112,13 +143,15 @@ def execute(command: str,
         t.start()
 
     stop_watch = threading.Event()
+    graces = {ev: (event_grace_s or {}).get(ev, GRACEFUL_TERMINATION_TIME_S)
+              for ev in (events or [])}
 
     def _watch_events():
         while not stop_watch.is_set():
-            for ev in (events or []):
+            for ev, grace_s in graces.items():
                 if ev.is_set():
                     logger.debug("terminating pid %d on event", proc.pid)
-                    terminate_process_tree(proc.pid)
+                    terminate_process_tree(proc.pid, grace_s=grace_s)
                     return
             time.sleep(0.1)
 
@@ -132,7 +165,11 @@ def execute(command: str,
     finally:
         stop_watch.set()
         if watcher is not None:
-            watcher.join(timeout=1.0)
+            # A watcher that is terminating the tree waits up to the
+            # grace for the command's descendants: the command's shell
+            # may die at once while the worker under it still finishes
+            # (a final checkpoint commit under SIGTERM).
+            watcher.join(timeout=max(graces.values()) + 1.0)
         for t in threads:
             t.join(timeout=5.0)
         # Reap any stragglers the command left behind.

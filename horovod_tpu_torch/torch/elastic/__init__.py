@@ -3,10 +3,12 @@
 
 Counterpart of :mod:`horovod_tpu.torch.elastic`.  A script launched by
 ``python -m horovod_tpu_torch.runner.launch --host-discovery-script ...``
-wraps its loop in ``@run`` and commits a ``TorchState`` after each step.
+wraps its loop in ``@run`` and commits a ``TorchState`` after each step;
+``durable_checkpointer(state)`` makes those commits durable on disk
+(``HOROVOD_CHECKPOINT_DIR``).
 """
 
 from .sampler import ElasticSampler
-from .state import TorchState, run
+from .state import TorchState, durable_checkpointer, run
 
-__all__ = ["TorchState", "ElasticSampler", "run"]
+__all__ = ["TorchState", "ElasticSampler", "run", "durable_checkpointer"]

@@ -1,6 +1,7 @@
 """The port's copy of the networked controller and the data plane's
 device rule, in one process on the CPU: what is not ported yet raises a
-clear error instead of running something else, the launcher's
+clear error instead of running something else, rank 0 builds the tuner
+the user asked for as the JAX package does, the launcher's
 rendezvous env gives the port's KV client, and the transport of
 CUDA tensors follows the cards a host has.  The protocol itself runs in
 test_torch_port_multiproc.py; the negotiation, cache and relay code is
@@ -34,10 +35,40 @@ def _rank0_state(**knobs):
                   knobs=Knobs(**knobs))
 
 
-@pytest.mark.parametrize("knob", ["tune", "autotune"])
-def test_tuning_is_refused_at_init(knob):
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        cn.NetworkController(_rank0_state(**{knob: True}))
+@pytest.mark.parametrize("knob,attr,kind", [
+    ("tune", "tune_session", "TuningSession"),
+    ("autotune", "parameter_manager", "ParameterManager"),
+])
+def test_rank0_builds_the_tuner_as_the_jax_package_does(knob, attr, kind):
+    """Rank 0's controller builds the tuning session (HOROVOD_TUNE) or
+    the legacy parameter manager (HOROVOD_AUTOTUNE), hands it to its
+    coordinator server and queues the same first announcement as the
+    JAX package's controller."""
+    from horovod_tpu.common import controller_net as jcn
+    from horovod_tpu.common.env import Knobs as JKnobs
+    from horovod_tpu.common.env import RankInfo as JRankInfo
+    built = []
+    for mod, knobs_cls, info_cls in ((cn, Knobs, RankInfo),
+                                     (jcn, JKnobs, JRankInfo)):
+        state = _State(rank_info=info_cls(rank=0, size=1, local_size=1),
+                       knobs=knobs_cls(**{knob: True}))
+        ctl = mod.NetworkController(state)
+        try:
+            tuner = getattr(state, attr)
+            other = "parameter_manager" if attr == "tune_session" \
+                else "tune_session"
+            assert type(tuner).__name__ == kind
+            assert getattr(state, other) is None
+            server_attr = "param_manager" if knob == "autotune" \
+                else "tune_session"
+            assert getattr(ctl.server, server_attr) is tuner
+            built.append((tuner.status() if knob == "tune" else
+                          (tuner.active, tuner.fusion_threshold_bytes,
+                           tuner.categorical_params),
+                          ctl.server._synced_params))
+        finally:
+            ctl.shutdown()
+    assert built[0] == built[1]
 
 
 def test_native_coordinator_is_refused(monkeypatch):

@@ -365,6 +365,67 @@ def test_torch_state_restores_a_cuda_model_bit_exact_on_its_card(cuda):
         hvd.shutdown()
 
 
+def test_torch_state_durable_items_copy_the_card_and_restore_to_it(
+        cuda, tmp_path):
+    # durable_state_dict() hands the checkpoint writer host numpy equal
+    # to the committed values on the card; a restore through the
+    # manager puts them back on the card.
+    import numpy as np
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.checkpoint import DurableCheckpointer
+    from horovod_tpu_torch.torch.elastic import TorchState
+    hvd.init()
+    try:
+        cfg = gpt.gpt_tiny_config(dtype=torch.bfloat16,
+                                  attention_impl="flash")
+
+        def build(seed):
+            model = gpt.GPTLMHeadModel(cfg, seed=seed)
+            opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+            return model, opt
+
+        model, opt = build(0)
+        g = torch.Generator(device=cuda).manual_seed(0)
+        ids = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                            generator=g)
+        opt.zero_grad()
+        gpt.lm_loss(model(ids), ids).backward()
+        opt.step()
+        state = TorchState(model, opt, step=1)
+        items = state.durable_state_dict()
+        for k, v in model.state_dict().items():
+            got = items["torch/arg.0/" + k]
+            assert isinstance(got, np.ndarray) and v.is_cuda, k
+            assert np.array_equal(got, v.cpu().numpy()), k
+        for i, st in opt.state_dict()["state"].items():
+            for k, v in st.items():
+                got = items[f"torch/arg.1/state/{i}/{k}"]
+                assert np.array_equal(got, v.cpu().numpy()), (i, k)
+        ck = DurableCheckpointer(state, str(tmp_path))
+        ck.commit()
+        assert ck.wait(60)
+        ck.close()
+
+        model2, opt2 = build(1)
+        state2 = TorchState(model2, opt2, step=0)
+        ck2 = DurableCheckpointer(state2, str(tmp_path))
+        assert ck2.maybe_restore() == 0
+        ck2.close()
+        card = torch.device("cuda", torch.cuda.current_device())
+        assert state2.step == 1
+        for k, v in model2.state_dict().items():
+            assert v.device == card, k
+            assert torch.equal(v, model.state_dict()[k]), k
+        for i, st in opt2.state_dict()["state"].items():
+            for k, v in st.items():
+                assert torch.equal(v.cpu(),
+                                   opt.state_dict()["state"][i][k].cpu())
+                if k != "step":
+                    assert v.device == card, (i, k)
+    finally:
+        hvd.shutdown()
+
+
 def test_nccl_group_is_remade_three_times_through_basics(cuda,
                                                          monkeypatch):
     # The part of an elastic reset one card can run on the NCCL path:

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no module of it (nor chip_smoke.py)
-imports JAX, flax, optax or any module of horovod_tpu."""
+imports JAX, flax, optax or any module of horovod_tpu.  Its root exports
+the JAX package's root names, lazily, so that the launcher starts
+without torch."""
 
 import ast
 import os
@@ -38,6 +40,16 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import horovod_tpu_torch.torch.elastic\n"
         "import horovod_tpu_torch.common.elastic\n"
         "import horovod_tpu_torch.checkpoint\n"
+        "import horovod_tpu_torch.checkpoint.manager\n"
+        "import horovod_tpu_torch.checkpoint.shard_io\n"
+        "import horovod_tpu_torch.checkpoint.delta\n"
+        "import horovod_tpu_torch.checkpoint.elastic\n"
+        "import horovod_tpu_torch.checkpoint.preemption\n"
+        "import horovod_tpu_torch.tune, horovod_tpu_torch.tune.session\n"
+        "import horovod_tpu_torch.tune.search, horovod_tpu_torch.tune.profile\n"
+        "import horovod_tpu_torch.common.parameter_manager\n"
+        "import horovod_tpu_torch.common.optim\n"
+        "import horovod_tpu_torch.torch.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
@@ -75,3 +87,51 @@ def test_no_source_imports_jax_or_reference():
             offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} "
                           f"{n}" for n in names if _forbidden(n)]
     assert offenders == []
+
+
+# Root names of the JAX package whose port is still open (ROADMAP.md
+# Queue 1: items 11, 16 and 17).
+OPEN_ITEMS = {"parallel", "sparse", "serve"}
+
+
+def test_root_exports_the_jax_root_names():
+    import horovod_tpu
+    import horovod_tpu_torch
+    want = set(horovod_tpu.__all__) - OPEN_ITEMS
+    assert set(horovod_tpu_torch.__all__) == want
+    for name in sorted(want):
+        assert getattr(horovod_tpu_torch, name) is not None, name
+    assert issubclass(horovod_tpu_torch.HostsUpdatedInterrupt, Exception)
+    assert horovod_tpu_torch.tune_status() is None      # not initialized
+
+
+def test_tune_and_checkpoint_export_the_jax_names():
+    import horovod_tpu.checkpoint
+    import horovod_tpu.tune
+    import horovod_tpu_torch.checkpoint
+    import horovod_tpu_torch.tune
+    assert set(horovod_tpu_torch.tune.__all__) == \
+        set(horovod_tpu.tune.__all__)
+    assert set(horovod_tpu.checkpoint.__all__) <= \
+        set(horovod_tpu_torch.checkpoint.__all__)
+    for mod in (horovod_tpu_torch.tune, horovod_tpu_torch.checkpoint):
+        for name in mod.__all__:
+            assert getattr(mod, name) is not None, name
+
+
+def test_runner_imports_without_torch():
+    code = (
+        "import sys\n"
+        "import horovod_tpu_torch.runner, horovod_tpu_torch.runner.launch\n"
+        "import horovod_tpu_torch.runner.gpu_run\n"
+        "import horovod_tpu_torch.runner.elastic_run\n"
+        "import horovod_tpu_torch.checkpoint, horovod_tpu_torch.tune\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('torch', 'jax', 'horovod_tpu'))\n"
+        "print(','.join(loaded))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout

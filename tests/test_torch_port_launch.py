@@ -8,7 +8,9 @@ JAX package's launcher where the JAX package can run the same thing:
   is exact, and each rank's /metrics answers 200 signed and 403 unsigned;
 * a failed rank fails the launch and the other rank is killed within the
   grace time, through ``launch_static`` of both packages and the CLI;
-* ``run(func, np=2)`` returns the ranks' results in rank order.
+* ``run(func, np=2)`` returns the ranks' results in rank order;
+* a terminated worker gets its event's grace (a preempted one the
+  preemption hook's), with ``psutil`` and without.
 
 The launched training (eager ops, MLP and tiny GPT against the JAX
 package) is in test_torch_port_multiproc.py, beside the JAX run it
@@ -172,6 +174,103 @@ def test_cli_exits_1_naming_the_failed_rank(tmp_path):
     assert "horovodrun: Horovod run failed: non-zero exit codes {1: 1" in out
     assert time.monotonic() - t0 < \
         safe_shell_exec.GRACEFUL_TERMINATION_TIME_S + 20
+
+
+_TRAPS_TERM = textwrap.dedent("""
+    import signal, sys, time
+    def on_term(signum, frame):
+        time.sleep(float(sys.argv[1]))
+        open(sys.argv[2], "w").write("finished")
+        sys.exit(3)
+    signal.signal(signal.SIGTERM,
+                  signal.SIG_IGN if sys.argv[1] == "ignore" else on_term)
+    print("ready", flush=True)
+    time.sleep(60)
+""")
+
+
+def _wait_ready(path, timeout=30.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if os.path.exists(path) and "ready" in open(path).read():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"{path}: the worker never got ready")
+
+
+def test_preemption_grace_covers_the_hook():
+    """The launcher waits for a preempted worker at least as long as the
+    preemption hook may take: its grace and the 5 s its join allows."""
+    from horovod_tpu_torch.checkpoint import preemption
+    assert safe_shell_exec.PREEMPTION_TERMINATION_TIME_S >= \
+        preemption.DEFAULT_GRACE_S + 5.0
+
+
+@pytest.mark.parametrize("psutil_present", [True, False])
+def test_event_grace_outlasts_the_default(psutil_present, monkeypatch,
+                                          tmp_path):
+    """A worker whose SIGTERM handler runs past the default grace (a final
+    checkpoint commit) finishes it when its event's grace allows, with
+    psutil and without."""
+    if not psutil_present:
+        monkeypatch.setitem(sys.modules, "psutil", None)
+    script, out = tmp_path / "w.py", tmp_path / "out"
+    finished = tmp_path / "finished"
+    script.write_text(_TRAPS_TERM)
+    handler_s = safe_shell_exec.GRACEFUL_TERMINATION_TIME_S + 1
+    ev, box = threading.Event(), {}
+
+    def run():
+        with open(out, "w") as sink:
+            box["rc"] = safe_shell_exec.execute(
+                f"{sys.executable} {script} {handler_s} {finished}",
+                stdout=sink,
+                events=[ev], event_grace_s={ev: handler_s + 10})
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    _wait_ready(out)
+    t0 = time.monotonic()
+    ev.set()
+    t.join(timeout=60)
+    assert not t.is_alive()
+    # The shell may die of the SIGTERM at once: its code is not the
+    # worker's, but execute returned only once the worker had finished.
+    assert finished.read_text() == "finished"
+    assert handler_s <= time.monotonic() - t0 < handler_s + 10
+
+
+@pytest.mark.parametrize("handler", ["finishes", "ignores"])
+def test_terminate_without_psutil_waits_for_the_group(handler, monkeypatch,
+                                                      tmp_path):
+    """Without psutil the process group gets SIGTERM, is waited for up to
+    the grace, and what is left then gets SIGKILL."""
+    import subprocess
+    monkeypatch.setitem(sys.modules, "psutil", None)
+    script, out = tmp_path / "w.py", tmp_path / "out"
+    script.write_text(_TRAPS_TERM)
+    arg, grace_s = {"finishes": ("1.0", 10.0), "ignores": ("ignore", 1.0)}[
+        handler]
+    with open(out, "w") as sink:
+        p = subprocess.Popen([sys.executable, str(script), arg,
+                              str(tmp_path / "finished")], stdout=sink,
+                             start_new_session=True)
+    # The parent reaps its child, as execute's proc.wait() does.
+    reaper = threading.Thread(target=p.wait, daemon=True)
+    reaper.start()
+    try:
+        _wait_ready(out)
+        t0 = time.monotonic()
+        safe_shell_exec.terminate_process_tree(p.pid, grace_s=grace_s)
+        seconds = time.monotonic() - t0
+        reaper.join(timeout=10)
+    finally:
+        if p.poll() is None:
+            p.kill()
+    if handler == "finishes":
+        assert p.returncode == 3 and 1.0 <= seconds < grace_s
+    else:
+        assert p.returncode == -9 and seconds >= grace_s
 
 
 def _call_with_timeout(fn, timeout=LAUNCH_TIMEOUT_S):
