@@ -1,10 +1,12 @@
-"""On-card smoke test of horovod_tpu_torch: builds the CUDA kernels from
-this checkout, holds each against its plain PyTorch version, checks the
-GPT-2-small model at full width, trains it through ``hvd.torch`` in a
-world of one, runs the NCCL backend in a world of one (made and destroyed
-three times, as an elastic reset does), trains it at two ranks sharing
-the card, trains it elastically at 2, 3 and 2 ranks, and tunes it,
-preempts it and resumes it at two ranks.
+"""On-card smoke test of horovod_tpu_torch: builds the CUDA kernels and
+the native C++ coordinator from this checkout, holds each kernel against
+its plain PyTorch version, checks the GPT-2-small model at full width,
+trains it through ``hvd.torch`` in a world of one (its last step under
+the device trace), runs the NCCL backend in a world of one (made and
+destroyed three times, as an elastic reset does), trains it at two ranks
+sharing the card under the native coordinator and then under each
+coordinator in turns, trains it elastically at 2, 3 and 2 ranks, and
+tunes it, preempts it and resumes it at two ranks.
 
     python3 chip_smoke.py
 
@@ -20,7 +22,12 @@ The two-rank phase starts two fresh worker processes of this script
 Both use the one card, so CUDA tensors cross ranks over gloo, staged
 through host memory (NCCL refuses two ranks on one device).  Each worker
 also reads its own ``/metrics`` endpoint, signed with the job secret and
-unsigned, before it shuts down.
+unsigned, before it shuts down.  The launch pins ``HOROVOD_TPU_NATIVE=1``
+and rank 0 must host the native coordinator; the coordinator phase
+repeats it with ``HOROVOD_TPU_NATIVE`` 0, 0, 1 and compares negotiation
+under the two servers.  The elastic and tune_durable phases check that
+rank 0 hosts the server the JAX package's rule gives for their
+environment: native for the first, Python for the tuner.
 
 The elastic phase starts ``chip_smoke.py --elastic-worker`` through the
 elastic launcher, ``python -m horovod_tpu_torch.runner.launch -np 2
@@ -68,10 +75,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 import horovod_tpu_torch.torch as hvd  # noqa: E402
-from horovod_tpu_torch import kernels  # noqa: E402
+from horovod_tpu_torch import kernels, native, profile_step  # noqa: E402
 from horovod_tpu_torch.checkpoint import (  # noqa: E402
     committed_steps, preemption, read_manifest, step_dir)
 from horovod_tpu_torch.common import basics  # noqa: E402
+from horovod_tpu_torch.common import failpoints, straggler  # noqa: E402
+from horovod_tpu_torch.common.timeline import (  # noqa: E402
+    start_xla_trace, stop_xla_trace)
 from horovod_tpu_torch.common.fusion import fuse_responses  # noqa: E402
 from horovod_tpu_torch.common.message import (  # noqa: E402
     DataType, Response, ResponseType)
@@ -182,9 +192,21 @@ def fusion_label(mangled: str) -> str:
     return f"scaled_copy<{codes.get(m.group(1), m.group(1))}>"
 
 
+def build_coordinator() -> dict:
+    """g++ of the native coordinator (``native.ensure_built``); its
+    seconds, and whether the library was there already."""
+    cached = os.path.exists(native.library_path())
+    t0 = time.perf_counter()
+    built = native.ensure_built()
+    return {"built": built, "gxx_s": time.perf_counter() - t0,
+            "cached": cached}
+
+
 def phase_build():
-    """Builds the kernels from this checkout, one nvcc per source, all
-    started together, and reads what was built: per flash instantiation
+    """Builds the kernels from this checkout, one nvcc per source, and
+    the native coordinator with g++, all started together, before any
+    launch (rank 0's init would otherwise time a compile), and reads what
+    was built: per flash instantiation
     the HGMMA (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier)
     instructions in its SASS, per kernel its registers and spill bytes
     from the ptxas log.  Any of the four wgmma instantiations missing,
@@ -192,10 +214,20 @@ def phase_build():
     dtype missing, or a log that says setmaxnreg was ignored (C7508)
     fails the build."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        coordinator = pool.submit(build_coordinator)
         for lib in pool.map(kernels.load, SOURCES):
             assert lib is not None
+        coordinator = coordinator.result()
     nvcc_s = {src: kernels.build_seconds[src] for src in SOURCES}
+    if not coordinator["built"] or not native.available():
+        raise RuntimeError("build check failed: the native coordinator: "
+                           + native.unavailable_reason())
+    coordinator.update(
+        source="horovod_tpu_torch/native/coordinator.cc",
+        library=os.path.relpath(native.library_path(), REPO),
+        gxx=subprocess.run(["g++", "--version"], capture_output=True,
+                           text=True).stdout.splitlines()[0])
     fusion, fusion_warnings = kernels.build_report("fusion_buffer.cu",
                                                    mnemonics=("LDG", "STG"))
     fusion = {fusion_label(name): info
@@ -226,7 +258,8 @@ def phase_build():
                            for src in SOURCES],
          nvcc_s=nvcc_s, total_s=time.perf_counter() - t0,
          kernels=per_kernel, ptxas_warnings=warnings,
-         fusion_kernels=fusion, fusion_ptxas_warnings=fusion_warnings)
+         fusion_kernels=fusion, fusion_ptxas_warnings=fusion_warnings,
+         coordinator=coordinator)
     if faults:
         raise RuntimeError("build check failed: " + "; ".join(faults))
 
@@ -356,7 +389,11 @@ def phase_model_parity():
 
 def phase_train():
     """A Horovod training script trains GPT-2 small with the flash kernel
-    through hvd.torch in a world of one."""
+    through hvd.torch in a world of one.  The last step runs under
+    ``start_xla_trace``/``stop_xla_trace``: its Chrome trace must name
+    the wgmma flash kernel, and its device time is read by kernel and
+    category (``profile_step``'s reader); the step medians leave the
+    traced step out."""
     hvd.init()
     assert hvd.size() == 1
     cfg = gpt.gpt2_small_config(attention_impl="flash", dropout=0.0)
@@ -375,15 +412,27 @@ def phase_train():
     fa.launches = 0
     fa.launches_by_body.update({body: 0 for body in fa.launches_by_body})
     losses, step_ms = [], []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        opt.zero_grad()
-        loss = gpt.lm_loss(model(ids), ids)
-        loss.backward()
-        opt.step()
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss.item())
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for i in range(STEPS):
+            traced = i == STEPS - 1
+            if traced:
+                start_xla_trace(trace_dir)
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = gpt.lm_loss(model(ids), ids)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if traced:
+                trace_path = stop_xla_trace()
+                with open(trace_path) as f:
+                    trace_events = len(json.load(f)["traceEvents"])
+                trace_bytes = os.path.getsize(trace_path)
+                by_name = profile_step.device_ms_by_name(trace_path)
+            losses.append(loss.item())
+    flash_traced = {n[:90]: ms for n, ms in by_name.items()
+                    if "flash_fwd" in n}
     grads = [p.grad for p in model.parameters()]
     reduced = hvd.grouped_allreduce(grads, op=hvd.Average)
     launches = fa.launches_by_body[fa.BODY_WGMMA]
@@ -396,14 +445,22 @@ def phase_train():
     assert all(r.is_cuda and torch.equal(r, gr)
                for r, gr in zip(reduced, grads))
     assert launches >= cfg.num_layers * STEPS, by_body
-    median_step = statistics.median(step_ms[1:])
+    assert flash_traced and all("flash_fwd_wgmma_kernel" in n
+                                for n in flash_traced), sorted(by_name)
+    median_step = statistics.median(step_ms[1:-1])
     emit("train", config="gpt2_small bf16 flash", batch=BATCH, seq=SEQ,
          steps=STEPS, losses=losses, step_ms=step_ms,
-         median_step_ms=median_step,
+         median_step_ms=median_step, median_of_steps=[2, STEPS - 1],
          tokens_per_s=BATCH * SEQ / (median_step / 1e3),
          max_memory_allocated=peak, flash_launches=fa.launches,
          flash_launches_by_body={fa.BODY_NAMES[b]: n
-                                 for b, n in by_body.items()})
+                                 for b, n in by_body.items()},
+         device_trace={"step": STEPS, "trace_bytes": trace_bytes,
+                       "events": trace_events,
+                       "device_busy_ms": sum(by_name.values()),
+                       "device_ms_by_category":
+                       profile_step.ms_by_category(by_name),
+                       "flash_kernel_ms": flash_traced})
 
 
 def gpt2_small_gradient_shapes():
@@ -676,6 +733,60 @@ def eager_checks(rank: int, size: int, device) -> dict:
     return out
 
 
+def expected_server() -> str:
+    """The server class rank 0 hosts in this process's world by the JAX
+    package's rule (``_make_server`` of horovod_tpu/common/
+    controller_net.py, the port's the same): the Python coordinator when
+    a timeline, a tuner, metrics aggregation, failpoints, liveness,
+    reconnect grace, a relay tree or the straggler observatory is on, or
+    ``HOROVOD_TPU_NATIVE`` turns native off; else the native one (the
+    build phase built it)."""
+    st = basics._state()
+    k = st.knobs
+    python_only = (st.timeline is not None or k.tune or k.autotune or
+                   k.metrics_agg_interval_s > 0 or failpoints.ENABLED or
+                   k.liveness_interval_s > 0 or k.reconnect_grace_s > 0 or
+                   k.coord_fanout > 0 or straggler.ENABLED)
+    off = os.environ.get("HOROVOD_TPU_NATIVE", "1").strip().lower() in \
+        ("0", "false", "off", "no")
+    return "CoordinatorServer" if python_only or off else \
+        "NativeCoordinatorServer"
+
+
+def server_of_rank0() -> str:
+    """The class of the server rank 0 hosts, on every rank (rank 0
+    broadcasts it)."""
+    server = basics._state().runtime.controller.server
+    return hvd.broadcast_object(
+        type(server).__name__ if hvd.rank() == 0 else None, root_rank=0)
+
+
+def cache_rounds() -> list:
+    """Rank 0's response-cache rounds so far, [fast, full], from either
+    server; None on the other ranks."""
+    server = basics._state().runtime.controller.server
+    if server is None:
+        return None
+    if isinstance(server, native.NativeCoordinatorServer):
+        return list(server.cache_stats())
+    return [server.stats["fast_rounds"], server.stats["full_rounds"]]
+
+
+def uplink_frames() -> int:
+    """Negotiation frames this rank sent so far: full requests (RQ) and
+    cache-bit frames (CH)."""
+    stats = basics._state().runtime.controller.stats
+    return stats["rq_frames"] + stats["ch_frames"]
+
+
+def collective_seconds() -> float:
+    """Host seconds in collectives so far, every op and backend:
+    ``hvd_collective_seconds``'s sum."""
+    hist = basics.metrics_snapshot()["histograms"].get(
+        "hvd_collective_seconds", {})
+    return sum(h.get("sum", 0.0) for h in hist.values())
+
+
 def read_metrics(port: int, secret) -> tuple:
     """(HTTP status, body) of ``GET /metrics`` on this host's ``port``,
     signed with ``secret`` as the rendezvous client signs, or unsigned
@@ -699,7 +810,9 @@ def train_2rank_worker():
     ``hvd.torch.DistributedOptimizer`` (hooks on, bf16 compute, flash
     attention, AdamW), its own seeded tokens, then the eager collectives
     on CUDA tensors and its own ``/metrics`` (``HOROVOD_METRICS_PORT``),
-    read signed and unsigned.  Prints one ``RESULT {...}`` line."""
+    read signed and unsigned.  Reports rank 0's server class, its cache
+    rounds, this rank's uplink frames and collective seconds over the
+    steps.  Prints one ``RESULT {...}`` line."""
     wall = {"started": STARTED, "init_begin": time.time()}
     hvd.init()
     wall["init_end"] = time.time()
@@ -734,6 +847,8 @@ def train_2rank_worker():
         return hist.get("sum", 0.0)
 
     data_plane_s0 = data_plane_seconds()
+    rounds0, frames0 = cache_rounds(), uplink_frames()
+    collective_s0 = collective_seconds()
     wall["model_ready"] = time.time()
     losses, step_ms = [], []
     for _ in range(STEPS_2RANK):
@@ -752,6 +867,13 @@ def train_2rank_worker():
               "fusion_plain_calls": dict(fb.plain_calls),
               "backend": dict(backend.stats)}
     data_plane_s = data_plane_seconds() - data_plane_s0
+    collective_s = collective_seconds() - collective_s0
+    frames = uplink_frames() - frames0
+    rounds = cache_rounds()
+    if rounds is not None:
+        rounds = {"steps": [a - b for a, b in zip(rounds, rounds0)],
+                  "total": rounds}
+    server = server_of_rank0()
     peak = torch.cuda.max_memory_allocated()
     digest = hashlib.sha256()
     for name, p in sorted(model.named_parameters()):
@@ -771,6 +893,10 @@ def train_2rank_worker():
         "rank": rank, "size": size, "backend": transport,
         "losses": losses, "step_ms": step_ms, "counts": counts,
         "data_plane_ms_per_step": data_plane_s / STEPS_2RANK * 1e3,
+        "collective_ms_per_step": collective_s / STEPS_2RANK * 1e3,
+        "uplink_frames_per_step": frames / STEPS_2RANK,
+        "server": server, "expected_server": expected_server(),
+        "cache_rounds": rounds,
         "max_memory_allocated": peak, "params_sha256": digest.hexdigest(),
         "eager": checks, "slot": slot, "wall": wall,
         "rendezvous_port": int(os.environ["HOROVOD_GLOO_RENDEZVOUS_PORT"]),
@@ -836,12 +962,15 @@ def spawned_walls(out: str) -> dict:
     return spawned
 
 
-def launch_2rank(log_dir: str) -> dict:
+def launch_2rank(log_dir: str, native_flag: str) -> dict:
     """``python -m horovod_tpu_torch.runner.launch -np 2 -H localhost:2``
-    of this script's ``--train-worker``, with ``HOROVOD_METRICS_PORT=0``;
-    the launcher and its workers are killed past ``WORKER_TIMEOUT_S``.
-    Returns the launcher's output, exit codes and host times."""
-    env = dict(os.environ, PYTHONPATH=REPO, HOROVOD_METRICS_PORT="0")
+    of this script's ``--train-worker``, with ``HOROVOD_METRICS_PORT=0``
+    and ``HOROVOD_TPU_NATIVE=native_flag`` (``1``: a library that does
+    not load fails the launch instead of falling back); the launcher and
+    its workers are killed past ``WORKER_TIMEOUT_S``.  Returns the
+    launcher's output, exit codes and host times."""
+    env = dict(os.environ, PYTHONPATH=REPO, HOROVOD_METRICS_PORT="0",
+               HOROVOD_TPU_NATIVE=native_flag)
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
            "-np", "2", "-H", "localhost:2", "--verbose",
            "--output-filename", log_dir, sys.executable,
@@ -879,21 +1008,22 @@ def launch_2rank(log_dir: str) -> dict:
             "first_result_s": first_result[0] if first_result else None}
 
 
-def phase_train_2rank() -> dict:
-    """The main path at two ranks, started by the port's launcher: two
-    fresh worker processes, both on this card, so the data plane is gloo.
-    Checks what the workers report, their ``/metrics`` under the job
-    secret and the launcher's capture files, emits the ``launcher`` and
-    ``train_2rank`` lines, and returns the workers' launch counts."""
+def run_2rank(native_flag: str) -> tuple:
+    """One launch of the two-rank main path with ``HOROVOD_TPU_NATIVE``
+    pinned to ``native_flag``; checks what the workers report, their
+    ``/metrics`` under the job secret, the launcher's capture files and
+    that rank 0 hosted the server the JAX package's rule gives.  Returns
+    the launch and the workers' results, by rank."""
     with tempfile.TemporaryDirectory() as log_dir:
-        run = launch_2rank(log_dir)
+        run = launch_2rank(log_dir, native_flag)
         out = run["output"]
         if run["returncode"] != 0:
-            raise RuntimeError(f"train_2rank: the launcher exited "
+            raise RuntimeError(f"2-rank launch (HOROVOD_TPU_NATIVE="
+                               f"{native_flag}): the launcher exited "
                                f"{run['returncode']}:\n{out[-6000:]}")
         by_rank = result_lines(out)
         if sorted(by_rank) != [0, 1]:
-            raise RuntimeError(f"train_2rank: RESULT lines of ranks "
+            raise RuntimeError(f"2-rank launch: RESULT lines of ranks "
                                f"{sorted(by_rank)}:\n{out[-6000:]}")
         for rank in (0, 1):
             with open(os.path.join(log_dir, f"rank.{rank}", "stdout")) as f:
@@ -917,8 +1047,49 @@ def phase_train_2rank() -> dict:
         assert m["gloo_series"], m
         assert r["slot"]["transport"] == "gloo", r["slot"]
         assert r["rendezvous_port"] == r0["rendezvous_port"], r
+        assert r["server"] == r["expected_server"] == (
+            "NativeCoordinatorServer" if native_flag == "1"
+            else "CoordinatorServer"), (native_flag, r["server"],
+                                        r["expected_server"])
     assert r0["params_sha256"] == r1["params_sha256"], \
         "parameters differ between the ranks"
+    return run, results
+
+
+def launch_counts(results) -> dict:
+    return {"flash": sum(r["counts"]["flash"] for r in results),
+            "fusion": sum(r["counts"]["fusion"]["pack"] +
+                          r["counts"]["fusion"]["unpack"] for r in results)}
+
+
+def coordinator_summary(native_flag: str, run: dict, results) -> dict:
+    """One launch's negotiation numbers for the ``coordinator`` line."""
+    r0 = results[0]
+    return {
+        "HOROVOD_TPU_NATIVE": native_flag, "server": r0["server"],
+        "fused_responses_per_step":
+        r0["counts"]["backend"]["flat_allreduces"] / STEPS_2RANK,
+        "uplink_frames_per_step": {r["rank"]: r["uplink_frames_per_step"]
+                                   for r in results},
+        "cache_rounds_fast_full": r0["cache_rounds"],
+        "median_step_ms_rank0": statistics.median(r0["step_ms"][1:]),
+        "step_ms": {r["rank"]: r["step_ms"] for r in results},
+        "data_plane_ms_per_step": {r["rank"]: r["data_plane_ms_per_step"]
+                                   for r in results},
+        "collective_ms_per_step": {r["rank"]: r["collective_ms_per_step"]
+                                   for r in results},
+        "params_sha256": r0["params_sha256"], "launch_s": run["seconds"]}
+
+
+def phase_train_2rank() -> tuple:
+    """The main path at two ranks, started by the port's launcher: two
+    fresh worker processes, both on this card, so the data plane is gloo,
+    with ``HOROVOD_TPU_NATIVE=1``: rank 0 must host the native
+    coordinator.  Emits the ``launcher`` and ``train_2rank`` lines and
+    returns the workers' launch counts and the run's ``coordinator``
+    summary."""
+    run, results = run_2rank("1")
+    r0 = results[0]
     median = [statistics.median(r["step_ms"][1:]) for r in results]
     launched_by = " ".join(["python"] + run["cmd"][1:7])
     # Host seconds of each rank's way to its first step, from the wall
@@ -961,10 +1132,47 @@ def phase_train_2rank() -> dict:
                                for r in results},
          counts={r["rank"]: r["counts"] for r in results},
          params_identical=True, params_sha256=r0["params_sha256"],
-         eager={r["rank"]: r["eager"] for r in results})
-    return {"flash": sum(r["counts"]["flash"] for r in results),
-            "fusion": sum(r["counts"]["fusion"]["pack"] +
-                          r["counts"]["fusion"]["unpack"] for r in results)}
+         eager={r["rank"]: r["eager"] for r in results},
+         coordinator_server={r["rank"]: r["server"] for r in results},
+         cache_rounds_fast_full=r0["cache_rounds"],
+         uplink_frames_per_step={r["rank"]: r["uplink_frames_per_step"]
+                                 for r in results})
+    return launch_counts(results), coordinator_summary("1", run, results)
+
+
+def phase_coordinator(first_native: dict) -> dict:
+    """The two-rank launch of ``train_2rank`` under each coordinator, in
+    turns: native (``train_2rank``'s own launch), Python, Python, native
+    (``HOROVOD_TPU_NATIVE`` 1, 0, 0, 1), so that a drift of the host's
+    speed over the call weighs on both servers alike (two-rank step
+    times rose launch after launch in one call).  Every run must end
+    with one parameter hash: a two-rank fp32 sum with postscale 1/2 is
+    exact whatever the fusion grouping.  Emits the ``coordinator`` line
+    and returns the three launches' kernel counts."""
+    runs, counts = [first_native], {"flash": 0, "fusion": 0}
+    for flag in ("0", "0", "1"):
+        run, results = run_2rank(flag)
+        runs.append(coordinator_summary(flag, run, results))
+        for k, v in launch_counts(results).items():
+            counts[k] += v
+    by_server = {}
+    for r in runs:
+        by_server.setdefault(r["server"], []).append(r)
+    emit("coordinator", config="gpt2_small bf16 flash AdamW, batch 8 x "
+         "1024 per rank, 2 ranks sharing one card over gloo",
+         order=[r["server"] for r in runs], runs=runs,
+         median_step_ms_rank0={k: [r["median_step_ms_rank0"] for r in v]
+                               for k, v in by_server.items()},
+         fused_responses_per_step={
+             k: [r["fused_responses_per_step"] for r in v]
+             for k, v in by_server.items()},
+         params_sha256=runs[0]["params_sha256"])
+    assert [r["server"] for r in runs] == [
+        "NativeCoordinatorServer", "CoordinatorServer", "CoordinatorServer",
+        "NativeCoordinatorServer"], runs
+    hashes = {r["params_sha256"] for r in runs}
+    assert len(hashes) == 1, f"parameter hashes differ: {hashes}"
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1055,11 +1263,14 @@ def elastic_worker():
         else:
             hash_s = 0.0
         joined.append(state.step)
+        server = basics._state().runtime.controller.server
         emit_line("SYNCED", step=state.step, epoch=current_epoch(),
                   local_rank=hvd.local_rank(), cross_rank=hvd.cross_rank(),
                   card=torch.cuda.current_device(),
                   transport=basics._state().transport, sha=sha,
-                  synced_wall=synced, hash_s=hash_s)
+                  synced_wall=synced, hash_s=hash_s,
+                  server=type(server).__name__ if server else None,
+                  expected_server=expected_server())
         batch = 0
         while True:
             stop = hvd.allreduce(torch.tensor([float(os.path.exists(
@@ -1234,6 +1445,14 @@ def phase_elastic() -> dict:
         assert c["flash_all_bodies"] == c["flash"], c
     for e in synced:
         assert e["transport"] == "gloo" and e["card"] == 0, e
+    # Rank 0 of every world hosted the server the JAX package's rule
+    # gives for its environment (the launcher sets no Python-only knob).
+    servers = {}
+    for e in synced:
+        if e["rank"] == 0:
+            assert e["server"] == e["expected_server"], e
+            servers.setdefault(f"epoch {e['epoch']} size {e['size']}",
+                               e["server"])
 
     commits = [e["prev_commit_ms"] for e in step_events
                if e["prev_commit_ms"] is not None]
@@ -1287,7 +1506,8 @@ def phase_elastic() -> dict:
                                for r in (0, 1)},
          joiner_sha256=at3[0]["sha"], final_sha256=results[0]["sha"],
          launch_s=time.time() - wall0,
-         counts={str(k): v for k, v in last.items()})
+         counts={str(k): v for k, v in last.items()},
+         rank0_server=servers)
     return {"flash": flash, "fusion": fusion}
 
 
@@ -1358,7 +1578,10 @@ def durable_worker():
     t0 = time.perf_counter()
     restored = ckpt.maybe_restore()
     restore_s = time.perf_counter() - t0
+    server = rt.controller.server
     report("start", restored=restored, step=state.step,
+           server=type(server).__name__ if server else None,
+           expected_server=expected_server(),
            restore_s=restore_s, launcher_wall=wall,
            sha=state_sha256(model, opt) if restored is not None else None,
            tune=horovod_tpu_torch.tune_status(),
@@ -1572,6 +1795,11 @@ def phase_tune_durable() -> dict:
             for r, evs in runs[launch]["reports"].items()}
             for launch in ("A", "B")})
     # --- launch A: search, freeze, replay, durable commits, final commit
+    # The tuner pins the Python coordinator, in both packages.
+    for launch_reports in (a, b):
+        s0 = events(launch_reports, "start")[0][0]
+        assert s0["server"] == s0["expected_server"] == \
+            "CoordinatorServer", s0
     for r in (0, 1):
         assert len(finals[r]) == 1 and len(helds[r]) == 1, (finals, helds)
         assert all(math.isfinite(e["loss"]) for e in steps_a[r])
@@ -1683,6 +1911,7 @@ def phase_tune_durable() -> dict:
         "max_memory_allocated": {str(r): helds[r][0]["max_memory_allocated"]
                                  for r in (0, 1)},
         "sha256": finals[0][0]["sha"],
+        "rank0_server": events(a, "start")[0][0]["server"],
     }
     emit("tune_durable", **row)
     every = [e for r in (0, 1) for e in steps_a[r] + steps_b[r]]
@@ -1708,19 +1937,21 @@ def main():
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    t0 = time.perf_counter()
     phase_build()
     flash_row = phase_kernels()
     fusion_row = phase_fusion_kernel()
     phase_model_parity()
     phase_train()
     phase_nccl_world1()
-    launches = phase_train_2rank()
+    launches, first_native = phase_train_2rank()
+    coordinator = phase_coordinator(first_native)
     elastic = phase_elastic()
     durable = phase_tune_durable()
-    flash_row["launches"] = launches["flash"] + elastic["flash"] + \
-        durable["flash"]
-    fusion_row["launches"] = launches["fusion"] + elastic["fusion"] + \
-        durable["fusion"]
+    paths = (launches, coordinator, elastic, durable)
+    flash_row["launches"] = sum(p["flash"] for p in paths)
+    fusion_row["launches"] = sum(p["fusion"] for p in paths)
+    emit("script", seconds=time.perf_counter() - t0)
     print(CARD, flush=True)
     print(json.dumps({"kernels": [flash_row, fusion_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

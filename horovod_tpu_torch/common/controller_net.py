@@ -11,9 +11,9 @@ executes the identical fused batch, so every process enters the same
 
 Counterpart of :mod:`horovod_tpu.common.controller_net`, copied whole:
 negotiation, the response cache, replay, liveness and reconnect, the
-relay tree, metrics frames.  The port always runs the Python
-``CoordinatorServer``: the native C++ coordinator is not ported, and
-``HOROVOD_TPU_NATIVE`` set to a true value raises at init.  The
+relay tree, metrics frames.  Rank 0 hosts the native C++ coordinator
+(``horovod_tpu_torch/native``) or the Python ``CoordinatorServer`` by the
+JAX package's rule (``_make_server``).  The
 rendezvous KV client is the port's ``runner/http_server.py``: with the
 launcher's ``HOROVOD_GLOO_RENDEZVOUS_ADDR``/``_PORT`` set, rank 0
 publishes its bound controller address there and the other ranks read
@@ -2766,23 +2766,115 @@ class NetworkController(Controller):
 
     def _make_server(self, state, port, param_manager,
                      tune_session=None):
-        """The Python CoordinatorServer, always: the native C++
-        coordinator (horovod_tpu/native) is not ported yet (ROADMAP.md
-        Queue 1, item 6), so ``HOROVOD_TPU_NATIVE`` set to a true value
-        raises instead of silently running the Python coordinator in
-        its place.  The tuner needs this server in any case: the
-        parameter manager and the tuning session score every round
-        in-line and announce their knobs in PA frames.  The reference's
-        strict-native refusals of the tuner come with item 6."""
+        """Prefer the native C++ coordinator (horovod_tpu_torch/native);
+        fall back to the Python CoordinatorServer.  The Python server is
+        also used when a timeline is active (negotiation spans are
+        recorded coordinator-side), when cross-rank metrics
+        aggregation is requested (MQ/MR frames), and while the
+        autotuner runs (the
+        parameter manager scores real per-round byte counts in-line and
+        announces categorical knobs via PA frames — higher-fidelity
+        than the native counter-polling path it replaces)."""
         allow_ephemeral = self._rendezvous_client() is not None
         stall_warn = 0.0 if state.knobs.stall_check_disable else \
             state.knobs.stall_warning_time_s
-        if env_mod.env_bool("HOROVOD_TPU_NATIVE"):
-            raise NotImplementedError(
-                "HOROVOD_TPU_NATIVE: the native C++ coordinator is not "
-                "ported to horovod_tpu_torch; it comes with its own slice "
-                "(ROADMAP.md Queue 1, item 6).  Unset it to run the "
-                "Python coordinator.")
+        # When the user EXPLICITLY set HOROVOD_TPU_NATIVE to a truthy
+        # value, a missing/broken native build is an error, not a
+        # silent fallback — otherwise native-path tests pass vacuously
+        # against the Python coordinator.
+        strict_native = env_mod.env_bool("HOROVOD_TPU_NATIVE")
+        if strict_native and param_manager is not None:
+            raise RuntimeError(
+                "HOROVOD_TPU_NATIVE=1 is incompatible with "
+                "HOROVOD_AUTOTUNE=1: the autotuner requires the Python "
+                "coordinator (in-line scoring + PA parameter frames). "
+                "Unset one of the two.")
+        if strict_native and tune_session is not None:
+            raise RuntimeError(
+                "HOROVOD_TPU_NATIVE=1 is incompatible with "
+                "HOROVOD_TUNE=1: autotune-then-freeze requires the "
+                "Python coordinator (per-class round scoring + PA knob "
+                "frames).  Run the frozen knobs through plain env "
+                "variables instead, or unset one of the two.")
+        metrics_interval = state.knobs.metrics_agg_interval_s
+        if strict_native and metrics_interval > 0:
+            raise RuntimeError(
+                "HOROVOD_TPU_NATIVE=1 is incompatible with "
+                "HOROVOD_METRICS_AGG_SECONDS>0: cross-rank metrics "
+                "aggregation requires the Python coordinator (MQ/MR "
+                "frames).  Unset one of the two.")
+        # Armed failpoints pin the Python coordinator: the native C++
+        # coordinator carries no injection sites, and a fault schedule
+        # that silently skipped its coord.*/worker.* rules would report
+        # a vacuous pass.  Strict-native + failpoints is a config error.
+        if strict_native and _fp.ENABLED:
+            raise RuntimeError(
+                "HOROVOD_TPU_NATIVE=1 is incompatible with "
+                "HOROVOD_FAILPOINTS: fault injection requires the "
+                "Python coordinator.  Unset one of the two.")
+        # The self-healing control plane (HB liveness, reconnect grace)
+        # is Python-coordinator-only: the native server treats any
+        # non-CH/RQ frame as a departed rank, so heartbeats would kill
+        # every link.  Same gating rule as the other Python-only
+        # features above (documented in docs/failure_recovery.md).
+        selfheal = state.knobs.liveness_interval_s > 0 or \
+            state.knobs.reconnect_grace_s > 0
+        if strict_native and selfheal:
+            raise RuntimeError(
+                "HOROVOD_TPU_NATIVE=1 is incompatible with "
+                "HOROVOD_LIVENESS_INTERVAL/HOROVOD_RECONNECT_GRACE: "
+                "the self-healing control plane requires the Python "
+                "coordinator (HB/WE frames).  Unset one of the two.")
+        # The relay tree is Python-coordinator-only too: the native
+        # server has no RB/RD/RL relay frames, so a relay registering
+        # against it would kill the link.  Same gating rule as the
+        # other Python-only features above.
+        tree = getattr(state.knobs, "coord_fanout", 0) > 0
+        if strict_native and tree:
+            raise RuntimeError(
+                "HOROVOD_TPU_NATIVE=1 is incompatible with "
+                "HOROVOD_COORD_FANOUT>0: the relay-tree control plane "
+                "requires the Python coordinator (relay frames).  "
+                "Unset one of the two.")
+        # The straggler observatory is Python-coordinator-only too:
+        # arrival attribution lives in the Python _process loop and
+        # the worker phase summaries ride MR frames the native server
+        # does not speak.  Same gating rule as the features above.
+        if strict_native and _sg.ENABLED:
+            raise RuntimeError(
+                "HOROVOD_TPU_NATIVE=1 is incompatible with "
+                "HOROVOD_STRAGGLER=1: the straggler observatory "
+                "requires the Python coordinator (CH/RQ arrival "
+                "attribution + MR phase frames).  Unset one of the "
+                "two.")
+        if state.timeline is None and param_manager is None and \
+                tune_session is None and \
+                metrics_interval <= 0 and not _fp.ENABLED and \
+                not selfheal and not tree and not _sg.ENABLED:
+            try:
+                from ..native import NativeCoordinatorServer, available
+                if strict_native and not available():
+                    raise RuntimeError(
+                        "HOROVOD_TPU_NATIVE is set but the native "
+                        "coordinator could not be built/loaded")
+                if available():
+                    return NativeCoordinatorServer(
+                        self.size, port=port,
+                        fusion_threshold=(
+                            state.knobs.fusion_threshold_bytes),
+                        elastic=state.knobs.elastic,
+                        allow_ephemeral_fallback=allow_ephemeral,
+                        cache_capacity=state.knobs.cache_capacity,
+                        stall_warning_time_s=stall_warn,
+                        stall_shutdown_time_s=(
+                            state.knobs.stall_shutdown_time_s))
+            except OSError:
+                raise   # bind failure: same semantics as Python server
+            except Exception:
+                if strict_native:
+                    raise
+                logger.warning("native coordinator unavailable; using "
+                               "the Python coordinator", exc_info=True)
         if _slo.ENABLED:
             # Rank 0 hosts the coordinator: its SLO burn alerts become
             # the job-level KV notice the elastic driver folds into
@@ -2799,7 +2891,7 @@ class NetworkController(Controller):
             cache_capacity=state.knobs.cache_capacity,
             stall_warning_time_s=stall_warn,
             stall_shutdown_time_s=state.knobs.stall_shutdown_time_s,
-            metrics_interval_s=state.knobs.metrics_agg_interval_s,
+            metrics_interval_s=metrics_interval,
             liveness_interval_s=state.knobs.liveness_interval_s,
             liveness_timeout_s=state.knobs.liveness_timeout_s,
             reconnect_grace_s=state.knobs.reconnect_grace_s,

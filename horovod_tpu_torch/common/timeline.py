@@ -9,9 +9,10 @@ operations.cc:422-425; format documented in docs/timeline.rst).
 Python implementation uses a queue.SimpleQueue (lock-free fast path on
 CPython) + daemon writer thread.  The output is standard chrome://tracing
 JSON, one async span per tensor keyed by a stable "tid" so collectives
-stack per tensor name.  XLA device-side profiling is delegated to
-``jax.profiler`` (see ``start_xla_trace``) — host spans here, device
-timeline there, matching the GPU event-queue split in the reference.
+stack per tensor name.  Device-side profiling is delegated to
+``torch.profiler`` (see ``start_xla_trace``, named as in the JAX
+package) — host spans here, device timeline there, matching the GPU
+event-queue split in the reference.
 """
 
 import json
@@ -177,3 +178,50 @@ class Timeline:
         if self.writer:
             self.writer.close()
             self.writer = None
+
+
+# The running device trace of start_xla_trace: (profiler, log_dir).
+_device_trace = None
+_device_trace_lock = threading.Lock()
+
+
+def start_xla_trace(log_dir: str):
+    """Start the device profiler alongside the host timeline: a
+    ``torch.profiler`` trace of the CPU and, where there is one, the
+    CUDA card, which :func:`stop_xla_trace` writes into ``log_dir`` as a
+    Chrome trace (chrome://tracing, Perfetto).  The JAX package's name
+    and contract (there ``jax.profiler``): a second start before a stop
+    raises.  Complements host spans the way the reference's GPU event
+    queue does (ops/gpu_operations.h:110-119)."""
+    global _device_trace
+    from torch.profiler import ProfilerActivity, profile, \
+        supported_activities
+    with _device_trace_lock:
+        if _device_trace is not None:
+            raise RuntimeError("a device trace is already running "
+                               f"(into {_device_trace[1]})")
+        wanted = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
+        prof = profile(activities=[a for a in wanted
+                                   if a in supported_activities()])
+        prof.start()
+        _device_trace = (prof, log_dir)
+
+
+def stop_xla_trace() -> str:
+    """Stop the trace :func:`start_xla_trace` began and write it; returns
+    the path of the Chrome trace (``<host>.<pid>.<ms>.pt.trace.json`` in
+    its ``log_dir``).  Raises when no trace is running."""
+    global _device_trace
+    import socket
+    with _device_trace_lock:
+        if _device_trace is None:
+            raise RuntimeError("no device trace is running "
+                               "(start_xla_trace was not called)")
+        prof, log_dir = _device_trace
+        _device_trace = None
+        prof.stop()
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(log_dir, "%s.%d.%d.pt.trace.json" % (
+            socket.gethostname(), os.getpid(), int(time.time() * 1e3)))
+        prof.export_chrome_trace(path)
+        return path

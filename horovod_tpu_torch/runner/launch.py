@@ -360,17 +360,20 @@ def _run(args):
 def check_build():
     """Build/availability report (reference: launch.py:116-153
     check_build — frameworks, controllers, tensor operations), for
-    the port: PyTorch, its CUDA cards, NCCL, gloo and the ``nvcc``
+    the port: PyTorch, its CUDA cards, NCCL, gloo, the native
+    coordinator (built here with g++ if it is not yet) and the ``nvcc``
     that builds the port's kernels."""
     import torch
     import torch.distributed as dist
 
     from ..kernels import nvcc_path
+    from ..native import available, unavailable_reason
     from ..version import __version__
 
     def x(v):
         return "X" if v else " "
 
+    native = available()
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     try:
         nvcc = nvcc_path()
@@ -384,7 +387,7 @@ Available Frameworks:
 
 Available Controllers:
     [X] TCP (Python coordinator)
-    [ ] TCP (native C++ coordinator, not ported)
+    [{x(native)}] TCP (native C++ coordinator){'' if native else ': ' + unavailable_reason()}
 
 Available Tensor Operations:
     [{x(dist.is_nccl_available() and cards)}] NCCL (CUDA tensors, one card per local rank)

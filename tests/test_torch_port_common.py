@@ -118,6 +118,73 @@ def test_timeline_records_torch_spans(hvd1, tmp_path):
     assert "TORCH_ALLREDUCE" in names
 
 
+def test_device_trace_of_a_gpt_forward_parses(tmp_path):
+    """start_xla_trace/stop_xla_trace (the JAX package's names) around a
+    small GPT-2 forward write a Chrome trace into the log dir; on the
+    CPU it holds the host ops and no device work."""
+    from horovod_tpu_torch import profile_step
+    from horovod_tpu_torch.common import timeline
+    from horovod_tpu_torch.models import gpt
+    cfg = gpt.gpt_tiny_config(dtype=torch.float32)
+    model = gpt.GPTLMHeadModel(cfg, device="cpu", seed=0).eval()
+    ids = torch.randint(0, cfg.vocab_size, (2, 16),
+                        generator=torch.Generator().manual_seed(0))
+    timeline.start_xla_trace(str(tmp_path / "trace"))
+    try:
+        with torch.no_grad():
+            model(ids)
+    finally:
+        path = timeline.stop_xla_trace()
+    assert os.path.dirname(path) == str(tmp_path / "trace")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert "aten::layer_norm" in names and "aten::softmax" in names, names
+    assert profile_step.device_ms_by_name(path) == {}
+
+
+def test_device_trace_refuses_a_second_start_and_a_lone_stop(tmp_path):
+    from horovod_tpu_torch.common import timeline
+    with pytest.raises(RuntimeError, match="no device trace is running"):
+        timeline.stop_xla_trace()
+    timeline.start_xla_trace(str(tmp_path))
+    try:
+        with pytest.raises(RuntimeError, match="already running"):
+            timeline.start_xla_trace(str(tmp_path))
+    finally:
+        timeline.stop_xla_trace()
+    with pytest.raises(RuntimeError, match="no device trace is running"):
+        timeline.stop_xla_trace()
+
+
+def test_device_time_is_read_by_kernel_and_category(tmp_path):
+    """The reader chip_smoke.py and profile_step share: device work
+    (kernels, copies, sets) summed by name and by category; host ops
+    and device-side annotations are not work."""
+    from horovod_tpu_torch import profile_step
+    flash = "void flash_fwd_wgmma_kernel<__nv_bfloat16, 64>(Params)"
+    events = [
+        {"ph": "X", "cat": "kernel", "name": flash, "dur": 50.0},
+        {"ph": "X", "cat": "kernel", "name": flash, "dur": 25.0},
+        {"ph": "X", "cat": "kernel", "name": "sm90_xmma_gemm_bf16",
+         "dur": 40.0},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy HtoD", "dur": 10.0},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "step",
+         "dur": 1000.0},
+        {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "dur": 500.0},
+        {"ph": "i", "cat": "kernel", "name": flash},
+    ]
+    path = tmp_path / "t.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    by_name = profile_step.device_ms_by_name(str(path))
+    assert by_name == pytest.approx({flash: 0.075,
+                                     "sm90_xmma_gemm_bf16": 0.04,
+                                     "Memcpy HtoD": 0.01})
+    by_cat = profile_step.ms_by_category(by_name)
+    assert list(by_cat) == ["flash_fwd", "matmul_16bit", "other"]
+    assert list(by_cat.values()) == pytest.approx([0.075, 0.04, 0.01])
+
+
 def test_kernel_cache_key_follows_source(tmp_path, monkeypatch):
     src = tmp_path / "k.cu"
     src.write_text("// one")

@@ -1,6 +1,7 @@
 """The port's copy of the networked controller and the data plane's
-device rule, in one process on the CPU: what is not ported yet raises a
-clear error instead of running something else, rank 0 builds the tuner
+device rule, in one process on the CPU: rank 0 hosts the coordinator
+the JAX package's rank 0 would host for the same environment (native or
+Python) or raises its error, rank 0 builds the tuner
 the user asked for as the JAX package does, the launcher's
 rendezvous env gives the port's KV client, and the transport of
 CUDA tensors follows the cards a host has.  The protocol itself runs in
@@ -71,10 +72,136 @@ def test_rank0_builds_the_tuner_as_the_jax_package_does(knob, attr, kind):
     assert built[0] == built[1]
 
 
-def test_native_coordinator_is_refused(monkeypatch):
-    monkeypatch.setenv("HOROVOD_TPU_NATIVE", "1")
-    with pytest.raises(NotImplementedError, match="HOROVOD_TPU_NATIVE"):
-        cn.NetworkController(_rank0_state())
+# Each knob that pins the Python coordinator, as the state of rank 0
+# carries it: a Knobs field, the timeline, a tuner, or an armed plane.
+_PYTHON_ONLY = {
+    "none": {},
+    "timeline": {"timeline": True},
+    "tune": {"tune": True},
+    "autotune": {"autotune": True},
+    "metrics_aggregation": {"metrics_agg_interval_s": 1.0},
+    "failpoints": {"failpoints": "coord.broadcast=delay(0)"},
+    "liveness": {"liveness_interval_s": 1.0},
+    "reconnect_grace": {"reconnect_grace_s": 1.0},
+    "fanout": {"coord_fanout": 2},
+    "straggler": {"straggler": True},
+}
+
+
+def _packages():
+    """(name, controller_net, env, failpoints, straggler, timeline,
+    TuningSession, ParameterManager, native) of each package."""
+    from horovod_tpu import native as jnative
+    from horovod_tpu.common import controller_net as jcn
+    from horovod_tpu.common import env as jenv
+    from horovod_tpu.common import failpoints as jfp
+    from horovod_tpu.common import parameter_manager as jpm
+    from horovod_tpu.common import straggler as jsg
+    from horovod_tpu.common import timeline as jtl
+    from horovod_tpu.tune import session as jts
+    from horovod_tpu_torch import native
+    from horovod_tpu_torch.common import failpoints, parameter_manager
+    from horovod_tpu_torch.common import straggler, timeline
+    from horovod_tpu_torch.tune import session
+    return {"port": (cn, env, failpoints, straggler, timeline,
+                     session.TuningSession,
+                     parameter_manager.ParameterManager, native),
+            "jax": (jcn, jenv, jfp, jsg, jtl, jts.TuningSession,
+                    jpm.ParameterManager, jnative)}
+
+
+def _select(pkg, setting, tmp_path):
+    """What rank 0 of a two-rank world hosts under ``setting``: the
+    server's class name, or the type and message of what it raised."""
+    cn_mod, env_mod, fp, sg, tl, session_cls, pm_cls, _ = _packages()[pkg]
+    setting = dict(setting)
+    timeline = tl.Timeline(str(tmp_path / f"{pkg}.json")) \
+        if setting.pop("timeline", False) else None
+    if "failpoints" in setting:
+        fp.configure(setting.pop("failpoints"))
+    if setting.pop("straggler", False):
+        sg.configure(True)
+    try:
+        knobs = env_mod.Knobs(**setting)
+        state = _State(rank_info=env_mod.RankInfo(rank=0, size=2,
+                                                  local_size=2),
+                       knobs=knobs, timeline=timeline)
+        ctl = cn_mod.NetworkController.__new__(cn_mod.NetworkController)
+        ctl.size = 2
+        tune_session = session_cls(knobs, 2) if knobs.tune else None
+        param_manager = pm_cls() if knobs.autotune else None
+        try:
+            server = ctl._make_server(state, 0, param_manager, tune_session)
+        except Exception as e:  # the outcome under test
+            return type(e).__name__, str(e)
+        server.stop()
+        return type(server).__name__
+    finally:
+        fp.reset()
+        sg.reset()
+        if timeline is not None:
+            timeline.close()
+
+
+@pytest.mark.parametrize("knob", sorted(_PYTHON_ONLY))
+@pytest.mark.parametrize("native", [None, "0", "1"])
+def test_server_selection_matches_the_jax_package(monkeypatch, tmp_path,
+                                                  native, knob):
+    """For each HOROVOD_TPU_NATIVE value and each knob that needs the
+    Python coordinator, rank 0 of the port hosts the server the JAX
+    package's rank 0 hosts, or raises its error: native when nothing
+    pins Python and g++ builds the library, Python otherwise, and a
+    config error for strict native beside a Python-only knob."""
+    if native is None:
+        monkeypatch.delenv("HOROVOD_TPU_NATIVE", raising=False)
+    else:
+        monkeypatch.setenv("HOROVOD_TPU_NATIVE", native)
+    for pkg in ("port", "jax"):
+        # Each package's loader reads HOROVOD_TPU_NATIVE once.
+        monkeypatch.setattr(_packages()[pkg][-1], "_tried", False)
+        monkeypatch.setattr(_packages()[pkg][-1], "_lib", None)
+    got = _select("port", _PYTHON_ONLY[knob], tmp_path)
+    want = _select("jax", _PYTHON_ONLY[knob], tmp_path)
+    assert got == want
+    strict = native == "1"
+    if knob == "none":
+        assert got == ("CoordinatorServer" if native == "0"
+                       else "NativeCoordinatorServer")
+    elif strict and knob != "timeline":
+        assert got[0] == "RuntimeError" and "HOROVOD_TPU_NATIVE=1 is " \
+            "incompatible" in got[1], got
+    else:
+        # A timeline pins Python without a refusal, in both packages.
+        assert got == "CoordinatorServer"
+
+
+@pytest.mark.parametrize("native", [None, "1"])
+def test_build_failure_without_gxx(monkeypatch, tmp_path, native):
+    """With g++ hidden from PATH and no library built: strict native
+    raises the JAX package's error at init; auto-selection falls back to
+    the Python server, in both packages."""
+    if native is None:
+        monkeypatch.delenv("HOROVOD_TPU_NATIVE", raising=False)
+    else:
+        monkeypatch.setenv("HOROVOD_TPU_NATIVE", native)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    port_native, jax_native = _packages()["port"][-1], _packages()["jax"][-1]
+    for mod in (port_native, jax_native):
+        monkeypatch.setattr(mod, "_tried", False)
+        monkeypatch.setattr(mod, "_lib", None)
+    monkeypatch.setattr(port_native, "BUILD_DIR", str(tmp_path / "port"))
+    monkeypatch.setattr(jax_native, "_BUILD_DIR", str(tmp_path / "jax"))
+    monkeypatch.setattr(jax_native, "_LIB",
+                        str(tmp_path / "jax" / "libhvdtpu_coord.so"))
+    got = _select("port", {}, tmp_path)
+    want = _select("jax", {}, tmp_path)
+    assert got == want
+    if native == "1":
+        assert got == ("RuntimeError", "HOROVOD_TPU_NATIVE is set but the "
+                       "native coordinator could not be built/loaded")
+    else:
+        assert got == "CoordinatorServer"
+    assert port_native.unavailable_reason() == "g++ not found"
 
 
 def test_rendezvous_client_is_refused(monkeypatch):

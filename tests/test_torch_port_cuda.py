@@ -110,6 +110,26 @@ def test_body_that_does_not_take_the_input_raises(cuda):
         fa.flash_attention_cuda(q, k, v, 0.25, True, body=fa.BODY_WGMMA)
 
 
+def test_device_trace_names_the_flash_kernel(cuda, tmp_path):
+    """One flash call under start_xla_trace/stop_xla_trace: the Chrome
+    trace holds the wgmma kernel with its device time."""
+    from horovod_tpu_torch import profile_step
+    from horovod_tpu_torch.common import timeline
+    q, k, v = _qkv(cuda, 96, 1024, 1024, 64, torch.bfloat16)
+    fa.flash_attention_cuda(q, k, v, 0.125, True)   # built and warm
+    torch.cuda.synchronize()
+    timeline.start_xla_trace(str(tmp_path))
+    try:
+        fa.flash_attention_cuda(q, k, v, 0.125, True)
+        torch.cuda.synchronize()
+    finally:
+        path = timeline.stop_xla_trace()
+    by_name = profile_step.device_ms_by_name(path)
+    flash = [n for n in by_name if "flash_fwd_wgmma_kernel" in n]
+    assert len(flash) == 1 and by_name[flash[0]] > 0, by_name
+    assert profile_step.ms_by_category(by_name)["flash_fwd"] > 0
+
+
 def test_tiny_gpt_flash_matches_einsum_on_card(cuda):
     cfg = gpt.gpt_tiny_config(dtype=torch.float32, dropout=0.0)
     einsum = gpt.GPTLMHeadModel(cfg, device=cuda, seed=0).eval()

@@ -15,6 +15,10 @@ whose JAX workers are the reference's):
   parameters are equal to each other and to a serial replay of the
   committed steps.
 
+Each runs with the launcher's defaults, on which rank 0 hosts the native
+coordinator (a death reaches the survivors through its departure
+handling), and again pinned to the Python coordinator.
+
 Beside them, one in-process test shows the optimizer faults the port
 repairs: the JAX package's ``horovod_tpu.torch`` optimizer trips after a
 step that died in the middle and after a shrink to one rank; the port's
@@ -39,7 +43,10 @@ pytestmark = pytest.mark.multiproc
 WAIT_S = 120
 
 # The production defaults of a launched job: no liveness probes and no
-# reconnect grace, so a dead rank is lost the moment its socket closes.
+# reconnect grace, so a dead rank is lost the moment its socket closes,
+# and rank 0 hosts the native coordinator (g++ builds it here).  The
+# ``*_on_the_python_coordinator`` tests pin HOROVOD_TPU_NATIVE=0 to run
+# the same cases on the Python server.
 _ENV = {"HOROVOD_STEADY_STATE_REPLAY": "0", "HOROVOD_LIVENESS_INTERVAL": "0",
         "HOROVOD_RECONNECT_GRACE": "0", "HOROVOD_START_TIMEOUT": "60"}
 
@@ -60,6 +67,10 @@ DIE_AT = int(os.environ.get("TEST_DIE_AT", "0"))
 
 @run
 def train(state):
+    if hvd.rank() == 0:
+        server = basics._state().runtime.controller.server
+        print(f"SERVER {type(server).__name__} size={hvd.size()}",
+              flush=True)
     while True:
         stop = hvd.allreduce(torch.tensor([float(os.path.exists(STOP))]),
                              op=hvd.Sum, name="stopflag")
@@ -92,6 +103,7 @@ import hashlib, json, os, time
 import numpy as np
 import torch
 import horovod_tpu_torch.torch as hvd
+from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.models import gpt
 from horovod_tpu_torch.torch.elastic import ElasticSampler, TorchState, run
 
@@ -135,6 +147,10 @@ def digest():
 @run
 def train(state):
     joined.append(state.step)
+    if hvd.rank() == 0:
+        server = basics._state().runtime.controller.server
+        print(f"SERVER {type(server).__name__} size={hvd.size()}",
+              flush=True)
     print("SYNCED " + json.dumps({"step": state.step, "rank": hvd.rank(),
                                   "size": hvd.size(), "sha": digest()}),
           flush=True)
@@ -241,11 +257,21 @@ class ElasticRun:
         self.thread.join(timeout=WAIT_S)
 
 
-@pytest.mark.parametrize("case", ["grow", "death", "two_tier_host_loss"])
-def test_world_resizes_through_the_port_launcher(case, tmp_path):
+def _servers(logs):
+    """(server class, world size) of every sync rank 0 reported."""
+    return re.findall(r"SERVER (\w+) size=(\d+)", logs)
+
+
+def _resize_case(case, tmp_path, native):
+    """Grow, death or two-tier host loss, with HOROVOD_TPU_NATIVE
+    unset (auto-selection) or pinned to ``native``; rank 0 must host the
+    matching server at every size."""
+    env = {} if native is None else {"HOROVOD_TPU_NATIVE": native}
+    want = "CoordinatorServer" if native == "0" else \
+        "NativeCoordinatorServer"
     if case == "grow":
         with ElasticRun(tmp_path, _EAGER_WORKER, "localhost:2\n", 2, 2,
-                        3) as run:
+                        3, extra_env=env) as run:
             run.wait_for(r"EPOCH \d+ rank=\d size=2")
             run.hosts_file.write_text("localhost:3\n")
             run.wait_for(r"EPOCH \d+ rank=2 size=3")
@@ -253,16 +279,29 @@ def test_world_resizes_through_the_port_launcher(case, tmp_path):
         assert set(codes.values()) == {0}
         assert len(re.findall(r"DONE rank=\d epoch=\d+ size=3",
                               run.logs())) == 3
-        return
-    two_tier = case == "two_tier_host_loss"
-    with ElasticRun(
-            tmp_path, _EAGER_WORKER,
-            "localhost:2\n127.0.0.1:2\n" if two_tier else
-            "localhost:2\n127.0.0.1:1\n",
-            4 if two_tier else 3, 2, 4 if two_tier else 3,
-            extra_env={"TEST_DOOMED_HOST": "127.0.0.1", "TEST_DIE_AT": "3",
-                       "HOROVOD_HIERARCHICAL_ALLREDUCE": "1"}) as run:
-        _death_case(run, two_tier)
+    else:
+        two_tier = case == "two_tier_host_loss"
+        with ElasticRun(
+                tmp_path, _EAGER_WORKER,
+                "localhost:2\n127.0.0.1:2\n" if two_tier else
+                "localhost:2\n127.0.0.1:1\n",
+                4 if two_tier else 3, 2, 4 if two_tier else 3,
+                extra_env=dict(env, TEST_DOOMED_HOST="127.0.0.1",
+                               TEST_DIE_AT="3",
+                               HOROVOD_HIERARCHICAL_ALLREDUCE="1")) as run:
+            _death_case(run, two_tier)
+    servers = _servers(run.logs())
+    assert servers and {cls for cls, _ in servers} == {want}, servers
+
+
+@pytest.mark.parametrize("case", ["grow", "death", "two_tier_host_loss"])
+def test_world_resizes_through_the_port_launcher(case, tmp_path):
+    _resize_case(case, tmp_path, None)
+
+
+@pytest.mark.parametrize("case", ["grow", "death", "two_tier_host_loss"])
+def test_world_resizes_on_the_python_coordinator(case, tmp_path):
+    _resize_case(case, tmp_path, "0")
 
 
 def _death_case(run, two_tier):
@@ -318,11 +357,25 @@ def _serial_replay(steps):
 
 
 def test_tiny_gpt_survives_a_death_inside_the_backward(tmp_path):
+    _tiny_gpt_death(tmp_path, None)
+
+
+def test_tiny_gpt_survives_a_death_on_the_python_coordinator(tmp_path):
+    _tiny_gpt_death(tmp_path, "0")
+
+
+def _tiny_gpt_death(tmp_path, native):
     out = tmp_path / "params"
     out.mkdir()
+    env = {} if native is None else {"HOROVOD_TPU_NATIVE": native}
     with ElasticRun(tmp_path, _GPT_WORKER, "localhost:2\n", 2, 2, 3,
-                    extra_env={"TEST_OUT_DIR": str(out)}) as run:
+                    extra_env=dict(env, TEST_OUT_DIR=str(out))) as run:
         _gpt_case(run, out)
+    want = "CoordinatorServer" if native == "0" else \
+        "NativeCoordinatorServer"
+    servers = _servers(run.logs())
+    assert [size for _, size in servers] == ["2", "3", "2"], servers
+    assert {cls for cls, _ in servers} == {want}, servers
 
 
 def _gpt_case(run, out):

@@ -50,6 +50,7 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import horovod_tpu_torch.common.parameter_manager\n"
         "import horovod_tpu_torch.common.optim\n"
         "import horovod_tpu_torch.torch.checkpoint\n"
+        "import horovod_tpu_torch.native\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
@@ -126,6 +127,25 @@ def test_runner_imports_without_torch():
         "import horovod_tpu_torch.runner.gpu_run\n"
         "import horovod_tpu_torch.runner.elastic_run\n"
         "import horovod_tpu_torch.checkpoint, horovod_tpu_torch.tune\n"
+        "loaded = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in ('torch', 'jax', 'horovod_tpu'))\n"
+        "print(','.join(loaded))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout
+
+
+def test_native_imports_and_builds_without_torch():
+    """The native coordinator's loader and its build need neither torch
+    nor JAX nor the JAX package."""
+    code = (
+        "import sys\n"
+        "from horovod_tpu_torch import native\n"
+        "assert native.available(), native.unavailable_reason()\n"
+        "native.NativeCoordinatorServer(2).stop()\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('torch', 'jax', 'horovod_tpu'))\n"
         "print(','.join(loaded))\n")

@@ -45,17 +45,33 @@ SIZE = hvd.size()
 """
 
 
+def _pins_native(env) -> bool:
+    return env.get("HOROVOD_TPU_NATIVE", "").strip().lower() in \
+        ("1", "true", "on", "yes")
+
+
+def _test_defaults(supplied) -> dict:
+    """The test defaults of ``multiproc.run_workers``: replay off, and
+    liveness on with test-scale values unless the test pins the native
+    coordinator (the self-healing channel is Python-coordinator-only,
+    and strict native beside liveness is a config error).  So a test
+    that pins nothing runs the Python coordinator, as the JAX package's
+    suites do."""
+    env = {"HOROVOD_STEADY_STATE_REPLAY": "0"}
+    if not _pins_native(supplied):
+        env.update({"HOROVOD_LIVENESS_INTERVAL": "3",
+                    "HOROVOD_LIVENESS_TIMEOUT": "15",
+                    "HOROVOD_RECONNECT_GRACE": "10"})
+    return env
+
+
 def launcher_env(extra_env=None):
     """The environment of a port launcher process: this one's, with the
     test defaults of ``run_port_workers`` (the launcher forwards it to
     every worker)."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env.update({"HOROVOD_STEADY_STATE_REPLAY": "0",
-                "HOROVOD_LIVENESS_INTERVAL": "3",
-                "HOROVOD_LIVENESS_TIMEOUT": "15",
-                "HOROVOD_RECONNECT_GRACE": "10",
-                "HOROVOD_START_TIMEOUT": "60",
-                "PYTHONPATH": REPO})
+    env.update(_test_defaults(extra_env or {}))
+    env.update({"HOROVOD_START_TIMEOUT": "60", "PYTHONPATH": REPO})
     env.update(extra_env or {})
     return env
 
@@ -80,12 +96,16 @@ def run_port_launcher(args, env, timeout=WORKER_TIMEOUT_S):
 
 
 def run_port_workers(body: str, nproc: int = 2, per_rank_env=None,
-                     extra_env=None):
+                     extra_env=None, before_init: str = ""):
     """``body`` in ``nproc`` port workers (sees RANK/SIZE/np/torch/hvd);
     the env contract and test defaults of ``multiproc.run_workers``.
-    Returns [(returncode, output)]."""
+    ``before_init`` runs before ``hvd.init()`` (sees RANK from the env
+    contract).  Returns [(returncode, output)]."""
     coord_port, ctrl_port = free_ports(2)
-    code = _PORT_PRELUDE + textwrap.dedent(body)
+    code = _PORT_PRELUDE.replace(
+        "hvd.init()\n", "RANK = int(os.environ['HOROVOD_RANK'])\n" +
+        textwrap.dedent(before_init) + "hvd.init()\n", 1) + \
+        textwrap.dedent(body)
     procs = []
     for rank in range(nproc):
         env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
@@ -96,15 +116,14 @@ def run_port_workers(body: str, nproc: int = 2, per_rank_env=None,
             "HOROVOD_CROSS_RANK": "0", "HOROVOD_CROSS_SIZE": "1",
             "HOROVOD_TPU_COORDINATOR": f"127.0.0.1:{coord_port}",
             "HOROVOD_CONTROLLER_ADDR": f"127.0.0.1:{ctrl_port}",
-            "HOROVOD_STEADY_STATE_REPLAY": "0",
-            "HOROVOD_LIVENESS_INTERVAL": "3",
-            "HOROVOD_LIVENESS_TIMEOUT": "15",
-            "HOROVOD_RECONNECT_GRACE": "10",
             "PYTHONPATH": REPO,
         })
-        env.update(extra_env or {})
+        supplied = dict(extra_env or {})
         if per_rank_env:
-            env.update({k: str(v) for k, v in per_rank_env(rank).items()})
+            supplied.update({k: str(v)
+                             for k, v in per_rank_env(rank).items()})
+        env.update(_test_defaults(supplied))
+        env.update(supplied)
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code], env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))

@@ -461,4 +461,17 @@ def test_check_build_lists_pytorch_and_no_jax(capsys):
     for row in ("TCP (Python coordinator)", "NCCL", "Gloo", "CUDA cards",
                 "nvcc"):
         assert row in out, row
-    assert "[ ] TCP (native C++ coordinator" in out
+    assert "[X] TCP (native C++ coordinator)\n" in out
+
+
+def test_check_build_says_why_the_native_coordinator_is_missing(
+        capsys, monkeypatch, tmp_path):
+    from horovod_tpu_torch import native
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with mock.patch.object(sys, "argv", ["horovodrun", "--check-build"]):
+        port_launch.run_commandline()
+    out = capsys.readouterr().out
+    assert "[ ] TCP (native C++ coordinator): g++ not found\n" in out
