@@ -5,8 +5,9 @@ trains it through ``hvd.torch`` in a world of one (its last step under
 the device trace), runs the NCCL backend in a world of one (made and
 destroyed three times, as an elastic reset does), trains it at two ranks
 sharing the card under the native coordinator and then under each
-coordinator in turns, trains it elastically at 2, 3 and 2 ranks, and
-tunes it, preempts it and resumes it at two ranks.
+coordinator in turns, trains it elastically at 2, 3 and 2 ranks,
+tunes it, preempts it and resumes it at two ranks, and trains it and
+BERT-base sharded over four ranks (fsdp x tp and dp x tp DTensor steps).
 
     python3 chip_smoke.py
 
@@ -42,6 +43,16 @@ searches, freezes, takes three more steps and commits durably every
 second step, then a SIGTERM to the launcher
 preempts it and the hook's final commit lands; launch B loads the
 profile without a search and resumes from that commit.
+
+The sharded_train phase launches ``chip_smoke.py --sharded-worker`` once
+with ``-np 4 -H localhost:4``: GPT-2 small through
+``training.make_gpt_train_step`` on ``{"fsdp": 2, "tp": 2}``, then
+BERT-base through ``make_bert_pretrain_step`` on ``{"dp": 2, "tp": 2}``,
+three steps each at full width with the flash kernel on each rank's
+heads.  Each model's losses at steps 1 and 2 (before and after one
+update) must equal those of the unsharded model on one rank, with the
+same optimizer and batch (computed here first), within ``STEP1_RTOL``
+and ``STEP2_RTOL``.
 """
 
 import ast
@@ -98,6 +109,7 @@ BF16_FLOP_PER_S = 989e12
 STEPS = 6
 STEPS_2RANK = 4
 BATCH, SEQ = 8, 1024
+BERT_BATCH, BERT_SEQ = 16, 512    # sharded_train's BERT-base batch
 SOURCES = ("flash_attn_fwd.cu", "fusion_buffer.cu")
 FUSION_THRESHOLD = 64 * 1024 * 1024  # HOROVOD_FUSION_THRESHOLD's default
 WORKER_TIMEOUT_S = 600
@@ -281,8 +293,9 @@ def host_us_per_call(fn, calls: int = 100) -> float:
 
 def phase_kernels() -> dict:
     """The CUDA flash forward against its plain version (fp32 matmuls,
-    no TF32): each body at the GPT-2-small training shape and at ragged
-    ones.  Then the wgmma body, the mma.sync body and sdpa timed at the
+    no TF32): each body at the GPT-2-small training shape, the wrapper's
+    choice at the per-rank shapes of the sharded steps, and ragged
+    shapes.  Then the wgmma body, the mma.sync body and sdpa timed at the
     GPT shape in one call, in turns."""
     torch.backends.cuda.matmul.allow_tf32 = False
     heads, hd = 12, 64
@@ -294,6 +307,12 @@ def phase_kernels() -> dict:
     cases = [("gpt2_small", bh_gpt, SEQ, SEQ, hd, bf16, True, 3e-2, None),
              ("gpt2_small_mma", bh_gpt, SEQ, SEQ, hd, bf16, True, 3e-2,
               fa.BODY_MMA),
+             # sharded_train's per-rank calls: half the batch (fsdp 2 or
+             # dp 2) and half the heads (tp 2).
+             ("gpt2_small_sharded", BATCH // 2 * heads // 2, SEQ, SEQ, hd,
+              bf16, True, 3e-2, None),
+             ("bert_base_sharded", BERT_BATCH // 2 * heads // 2, BERT_SEQ,
+              BERT_SEQ, hd, bf16, False, 3e-2, None),
              ("wgmma_noncausal_1000", 4, 1000, 1000, 64, bf16, False, 3e-2,
               None),
              ("wgmma_fp16_d128_1000x777", 2, 1000, 777, 128, fp16, True,
@@ -347,10 +366,13 @@ def phase_kernels() -> dict:
     flops = 4 * d * bh * SEQ * (SEQ + 1) // 2
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    main_path = {n: errors[n] for n in ("gpt2_small", "gpt2_small_sharded",
+                                        "bert_base_sharded")}
     row = {"name": "flash_attn_fwd", "route": "cuda",
            "source": "horovod_tpu_torch/kernels/flash_attn_fwd.cu",
            "replaces": "horovod_tpu/ops/pallas_attention.py:40",
-           "launches": None, "max_abs_err": errors["gpt2_small"],
+           "launches": None, "max_abs_err": max(main_path.values()),
+           "max_abs_err_by_shape": main_path,
            "ms": ms, "earlier_ms": earlier_ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -1920,6 +1942,323 @@ def phase_tune_durable() -> dict:
                           for e in every)}
 
 
+SHARDED_SEED = 3          # weights and tokens of the sharded phase
+SHARDED_STEPS = 3
+SHARDED_TIMEOUT_S = 600
+GPT_LR, BERT_LR = 1e-2, 1e-4  # the steps' defaults (optax's in JAX)
+# Losses against the unsharded model on one rank, relative: step 1
+# before any update (the sharded forward; bf16 reduction order), step 2
+# after one (the sharded gradients through Adam's first step, about
+# lr x sign(g), which turns the rounding of near-zero gradients into
+# whole steps), by model; each below the gap an update from half the
+# batch gives (unsharded_losses).
+STEP1_RTOL = 1e-3
+STEP2_RTOL = {"gpt": 1e-2, "bert": 5e-4}
+
+
+def sharded_ids(vocab_size: int) -> torch.Tensor:
+    """The sharded phase's global GPT batch, BATCH x SEQ tokens."""
+    g = torch.Generator().manual_seed(SHARDED_SEED)
+    return torch.randint(0, vocab_size, (BATCH, SEQ), generator=g)
+
+
+def gathered_sha256(model) -> str:
+    """sha256 of every parameter gathered whole (name order)."""
+    from torch.distributed.tensor import DTensor
+    h = hashlib.sha256()
+    for name, p in sorted(model.named_parameters()):
+        full = p.full_tensor() if isinstance(p, DTensor) else p
+        h.update(name.encode())
+        h.update(full.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def flash_kernels_in(trace_path: str) -> int:
+    """Flash-kernel launches in a ``stop_xla_trace`` Chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for e in events if e.get("ph") == "X" and
+               e.get("cat") == "kernel" and "flash_fwd" in e["name"])
+
+
+def sharded_run(step, model, tokens: int) -> dict:
+    """``SHARDED_STEPS`` calls of ``step()`` (each returns the loss);
+    step 1 runs under ``count_collectives`` and the device trace, whose
+    kernels are counted and summed by category."""
+    from horovod_tpu_torch.parallel import collectives as pc
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, flash = [], [], []
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for i in range(SHARDED_STEPS):
+            fa.launches = 0
+            route0 = pc.route_bytes
+            t0 = time.perf_counter()
+            if i == 0:
+                start_xla_trace(trace_dir)
+                with pc.count_collectives() as counted:
+                    loss = step()
+                torch.cuda.synchronize()
+                trace_path = stop_xla_trace()
+                traced_flash = flash_kernels_in(trace_path)
+                by_name = profile_step.device_ms_by_name(trace_path)
+            else:
+                loss = step()
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                route = pc.route_bytes - route0
+            flash.append(fa.launches)
+            losses.append(float(loss))
+    median = statistics.median(step_ms[1:])
+    size = hvd.size()
+    return {"losses": losses, "step_ms": step_ms, "median_step_ms": median,
+            "median_of_steps": [2, SHARDED_STEPS],
+            "tokens_per_s": tokens / (median / 1e3),
+            "tokens_per_s_per_rank": tokens / size / (median / 1e3),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "collective_bytes_step1": counted.bytes,
+            "collective_calls_step1": counted.calls,
+            "host_route_all_gather_bytes_step1": route,
+            "flash_launches_per_step": flash,
+            "flash_kernels_in_step1_trace": traced_flash,
+            "device_busy_ms_step1": sum(by_name.values()),
+            "device_ms_by_category_step1":
+            profile_step.ms_by_category(by_name),
+            "sha256": gathered_sha256(model)}
+
+
+def placements_of(model, *names) -> dict:
+    params = dict(model.named_parameters())
+    return {n: [repr(p) for p in params[n].placements] for n in names}
+
+
+def sharded_worker():
+    """One rank of the sharded_train phase (``--sharded-worker``): GPT-2
+    small through ``make_gpt_train_step`` on ``{"fsdp": 2, "tp": 2}``,
+    then BERT-base through ``make_bert_pretrain_step`` on ``{"dp": 2,
+    "tp": 2}``, both at full width, bf16, flash; prints one RESULT line."""
+    import gc
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import bert
+    from horovod_tpu_torch.parallel import build_mesh
+    hvd.init()
+    out = {"rank": hvd.rank(), "backend": basics._state().backend.name}
+
+    cfg = gpt.gpt2_small_config(dropout=0.0, attention_impl="flash")
+    mesh = build_mesh({"fsdp": 2, "tp": 2})
+    init_fn, step_fn, _ = training.make_gpt_train_step(
+        cfg, mesh, learning_rate=GPT_LR, fsdp="fsdp")
+    t0 = time.perf_counter()
+    model, opt = init_fn(SHARDED_SEED)
+    build_s = time.perf_counter() - t0
+    ids = sharded_ids(cfg.vocab_size)
+
+    def gpt_step():
+        nonlocal model, opt
+        model, opt, loss = step_fn(model, opt, ids)
+        return loss
+
+    out["gpt"] = dict(sharded_run(gpt_step, model, BATCH * SEQ),
+                      build_s=build_s, mesh={"fsdp": 2, "tp": 2},
+                      placements=placements_of(
+                          model, "word_embeddings.weight",
+                          "layers.0.attention.query.weight"))
+    del model, opt, gpt_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bcfg = bert.bert_base_config(hidden_dropout=0.0, attention_dropout=0.0,
+                                 attention_impl="flash")
+    mesh = build_mesh({"dp": 2, "tp": 2})
+    make_step, _ = training.make_bert_pretrain_step(
+        bcfg, mesh, learning_rate=BERT_LR)
+    batch = training.make_bert_batch(BERT_BATCH, BERT_SEQ, bcfg.vocab_size,
+                                     seed=SHARDED_SEED)
+    init_fn, bert_step_fn = make_step(batch)
+    t0 = time.perf_counter()
+    state = init_fn(SHARDED_SEED, batch)
+    build_s = time.perf_counter() - t0
+
+    def bert_step():
+        nonlocal state
+        state, loss = bert_step_fn(state, batch)
+        return loss
+
+    out["bert"] = dict(sharded_run(bert_step, state.model,
+                                   BERT_BATCH * BERT_SEQ),
+                       build_s=build_s, mesh={"dp": 2, "tp": 2},
+                       placements=placements_of(
+                           state.model, "encoder.word_embeddings.weight",
+                           "encoder.layers.0.attention.query.weight"))
+    hvd.shutdown()
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def unsharded_losses() -> dict:
+    """Each sharded model unsharded on this one rank, from the same seed
+    and batch, with the optimizer its sharded step uses: the loss at
+    step 1 (before any update) and at step 2 (after one update).  Two
+    more step-2 losses bracket the gate: after an update from the first
+    half of the batch alone (what a step that drops the gradient's
+    reduction over the batch axis takes), and after an update from the
+    whole batch's gradient summed over its two halves (the same
+    gradient in another order: the rounding a correct sharded step may
+    show)."""
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import bert
+    gcfg = gpt.gpt2_small_config(dropout=0.0, attention_impl="flash")
+    ids = sharded_ids(gcfg.vocab_size).cuda()
+    bcfg = bert.bert_base_config(hidden_dropout=0.0, attention_dropout=0.0,
+                                 attention_impl="flash")
+    batch = {k: v.cuda() for k, v in training.make_bert_batch(
+        BERT_BATCH, BERT_SEQ, bcfg.vocab_size, seed=SHARDED_SEED).items()}
+
+    def gpt_loss(model, rows):
+        return gpt.lm_loss(model(ids[rows]), ids[rows])
+
+    def bert_loss(model, rows):
+        return bert.mlm_loss(
+            model(batch["input_ids"][rows], deterministic=True),
+            batch["labels"][rows], batch["mask"][rows])
+
+    # (name, model, optimizer, loss, batch rows, a half's share of the
+    # whole batch's loss: of its tokens, or of its masked tokens)
+    runs = (("gpt",
+             lambda: gpt.GPTLMHeadModel(gcfg, seed=SHARDED_SEED).eval(),
+             lambda ps: torch.optim.Adam(ps, lr=GPT_LR), gpt_loss, BATCH,
+             lambda rows: 0.5),
+            ("bert", lambda: bert.BertForMaskedLM(bcfg, seed=SHARDED_SEED),
+             lambda ps: torch.optim.AdamW(ps, lr=BERT_LR, weight_decay=0.01),
+             bert_loss, BERT_BATCH,
+             lambda rows: (batch["mask"][rows].sum() /
+                           batch["mask"].sum()).item()))
+    every = slice(None)
+    out = {}
+    for name, build, optimizer, loss_of, n, share in runs:
+        first, second = slice(n // 2), slice(n // 2, None)
+        row = {}
+        for prefix, parts in (("", [(every, 1.0)]),
+                              ("half_batch_", [(first, 1.0)]),
+                              ("reordered_", [(first, share(first)),
+                                              (second, share(second))])):
+            model = build()
+            opt = optimizer(model.parameters())
+            for rows, weight in parts:
+                loss = loss_of(model, rows)
+                (loss * weight).backward()
+            opt.step()
+            if not prefix:
+                row["step1_loss"] = loss.item()
+            with torch.no_grad():
+                row[prefix + "step2_loss"] = loss_of(model, every).item()
+            del model, opt, loss
+            torch.cuda.empty_cache()
+        out[name] = row
+    return out
+
+
+def phase_sharded_train() -> dict:
+    """GPT-2 small (fsdp x tp) and BERT-base (dp x tp) sharded over four
+    ranks on this card: one launch, ``-np 4 -H localhost:4``, of this
+    script's ``--sharded-worker``; the ranks share the card, so CUDA
+    tensors cross over gloo.  Fails unless every rank exits 0, the
+    losses are finite and fall, the gathered parameters hash alike on
+    every rank, the flash kernel ran on every layer, GPT's embedding is
+    replicated over tp and BERT's sharded, and each model's losses at
+    steps 1 and 2 equal the unsharded model's (:func:`unsharded_losses`)
+    within ``STEP1_RTOL`` and ``STEP2_RTOL``."""
+    t0 = time.perf_counter()
+    reference = unsharded_losses()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+           "-np", "4", "-H", "localhost:4", sys.executable,
+           os.path.abspath(__file__), "--sharded-worker"]
+    proc, lines, reader = start_launcher(cmd, env)
+    try:
+        proc.wait(timeout=SHARDED_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        kill_tree(proc.pid)
+        proc.wait()
+    reader.join(timeout=30)
+    out = "".join(lines)
+    results = result_lines(out)
+    if proc.returncode != 0 or sorted(results) != [0, 1, 2, 3]:
+        print(out[-20000:], flush=True)
+        raise RuntimeError(f"sharded_train: the launcher exited "
+                           f"{proc.returncode} with RESULT lines of ranks "
+                           f"{sorted(results)}")
+    rows = {m: [results[r][m] for r in range(4)] for m in ("gpt", "bert")}
+    gaps = {}
+    for model_name, ref in reference.items():
+        got = rows[model_name][0]["losses"]
+        gaps[model_name] = {
+            "step1_rel_diff": abs(got[0] - ref["step1_loss"]) /
+            abs(ref["step1_loss"]),
+            "step2_rel_diff": abs(got[1] - ref["step2_loss"]) /
+            abs(ref["step2_loss"]),
+            **{f"{k}_step2_rel_diff":
+               abs(ref[f"{k}_step2_loss"] - ref["step2_loss"]) /
+               abs(ref["step2_loss"]) for k in ("half_batch", "reordered")}}
+    for model_name, label in (("gpt", "gpt2_small fsdp2 x tp2"),
+                              ("bert", "bert_base dp2 x tp2")):
+        per_rank = rows[model_name]
+        r0 = per_rank[0]
+        emit("sharded_train", model=label, ranks=4,
+             backend=results[0]["backend"],
+             batch=BATCH if model_name == "gpt" else BERT_BATCH,
+             seq=SEQ if model_name == "gpt" else BERT_SEQ,
+             steps=SHARDED_STEPS, losses=r0["losses"],
+             median_step_ms={str(i): r["median_step_ms"]
+                             for i, r in enumerate(per_rank)},
+             step_ms_rank0=r0["step_ms"],
+             median_of_steps=r0["median_of_steps"],
+             tokens_per_s_rank0=r0["tokens_per_s"],
+             tokens_per_s_per_rank=r0["tokens_per_s_per_rank"],
+             max_memory_allocated={str(i): r["max_memory_allocated"]
+                                   for i, r in enumerate(per_rank)},
+             placements=r0["placements"],
+             collective_bytes_per_step=r0["collective_bytes_step1"],
+             collective_calls_per_step=r0["collective_calls_step1"],
+             host_route_all_gather_bytes_per_step=r0[
+                 "host_route_all_gather_bytes_step1"],
+             flash_launches_per_step_per_rank=r0["flash_launches_per_step"],
+             flash_kernels_in_trace=r0["flash_kernels_in_step1_trace"],
+             traced_step1={"wall_ms": r0["step_ms"][0],
+                           "device_busy_ms": r0["device_busy_ms_step1"],
+                           "device_ms_by_category":
+                           r0["device_ms_by_category_step1"]},
+             build_s={str(i): r["build_s"] for i, r in enumerate(per_rank)},
+             sha256=r0["sha256"],
+             unsharded=reference[model_name], **gaps[model_name])
+    for model_name, per_rank in rows.items():
+        for r in per_rank:
+            assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+            assert r["losses"][-1] < r["losses"][0], r["losses"]
+            assert all(n == 12 for n in r["flash_launches_per_step"]), \
+                r["flash_launches_per_step"]
+            assert r["flash_kernels_in_step1_trace"] == 12, r
+        hashes = {r["sha256"] for r in per_rank}
+        assert len(hashes) == 1, f"{model_name}: parameters differ {hashes}"
+        assert len({tuple(r["losses"]) for r in per_rank}) == 1, per_rank
+    gpt_emb = rows["gpt"][0]["placements"]["word_embeddings.weight"]
+    bert_emb = rows["bert"][0]["placements"][
+        "encoder.word_embeddings.weight"]
+    assert gpt_emb[1] == "Replicate()", gpt_emb
+    assert bert_emb[1] == "Shard(dim=0)", bert_emb
+    for model_name, gap in gaps.items():
+        assert gap["step1_rel_diff"] <= STEP1_RTOL, (model_name, gap)
+        assert gap["step2_rel_diff"] <= STEP2_RTOL[model_name], \
+            (model_name, gap)
+        # The gate would see a dropped batch-axis reduction.
+        assert gap["half_batch_step2_rel_diff"] > STEP2_RTOL[model_name], \
+            (model_name, gap)
+    emit("sharded_train_phase", seconds=time.perf_counter() - t0)
+    return {"flash": sum(sum(r["flash_launches_per_step"])
+                         for rows_ in rows.values() for r in rows_),
+            "fusion": 0}
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -1932,6 +2271,9 @@ def main():
         return
     if sys.argv[1:] == ["--durable-worker"]:
         durable_worker()
+        return
+    if sys.argv[1:] == ["--sharded-worker"]:
+        sharded_worker()
         return
     CARD = card()
     emit("device", kind=torch.cuda.get_device_name(0),
@@ -1948,7 +2290,8 @@ def main():
     coordinator = phase_coordinator(first_native)
     elastic = phase_elastic()
     durable = phase_tune_durable()
-    paths = (launches, coordinator, elastic, durable)
+    sharded = phase_sharded_train()
+    paths = (launches, coordinator, elastic, durable, sharded)
     flash_row["launches"] = sum(p["flash"] for p in paths)
     fusion_row["launches"] = sum(p["fusion"] for p in paths)
     emit("script", seconds=time.perf_counter() - t0)

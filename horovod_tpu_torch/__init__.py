@@ -14,9 +14,9 @@ A world of one process needs no launcher; a larger one is started by
 for what is ported).
 
 The root names are those of :mod:`horovod_tpu` less its subpackages
-that are not ported yet (``parallel``, ``serve``, ``sparse``).  They
-load on first use (a module ``__getattr__``), so that the launcher,
-which needs only the standard library, starts without importing torch.
+that are not ported yet (``serve``, ``sparse``).  They load on first
+use (a module ``__getattr__``), so that the launcher, which needs only
+the standard library, starts without importing torch.
 """
 
 import importlib
@@ -47,7 +47,15 @@ _HOME = {**{n: ".common.basics" for n in _BASICS},
          **{n: ".ops" for n in _OPS}}
 
 
+# Subpackages exported by name, imported on first use.
+_SUBPACKAGES = ("parallel",)
+
+
 def __getattr__(name):
+    if name in _SUBPACKAGES:
+        value = importlib.import_module(f".{name}", __name__)
+        globals()[name] = value
+        return value
     home = _HOME.get(name)
     if home is None:
         raise AttributeError(
@@ -58,7 +66,7 @@ def __getattr__(name):
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_HOME))
+    return sorted(set(globals()) | set(_HOME) | set(_SUBPACKAGES))
 
 
 __all__ = [
@@ -83,4 +91,6 @@ __all__ = [
     "synchronize",
     # exceptions
     "HorovodInternalError", "HostsUpdatedInterrupt",
+    # subpackages
+    "parallel",
 ]

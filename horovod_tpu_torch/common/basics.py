@@ -29,6 +29,7 @@ import atexit
 import datetime
 import logging
 import os
+import sys
 import threading
 from typing import List, Optional, Sequence
 
@@ -359,6 +360,12 @@ def shutdown():
             import torch.distributed as dist
             dist.destroy_process_group()
             state.process_group_owned = False
+        # A mesh built on this world may have routed the functional
+        # all-gather of CUDA tensors through the host (gloo); the next
+        # world may carry them itself.
+        collectives = sys.modules.get("horovod_tpu_torch.parallel.collectives")
+        if collectives is not None:
+            collectives.remove_gloo_cuda_route()
         if state.runtime is not None:
             state.runtime.detach()
             state.runtime = None

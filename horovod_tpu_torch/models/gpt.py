@@ -6,7 +6,11 @@ fp32 parameters; embeddings, dense layers and attention computed in
 result in ``cfg.dtype``; tanh-GELU; a tied LM head ``x @ wte.T`` in
 ``cfg.dtype`` and fp32 logits.  ``attention_impl="flash"`` routes
 attention through :func:`horovod_tpu_torch.ops.flash_attention`, whose
-forward on a CUDA tensor is the hand-written kernel.
+forward on a CUDA tensor is the hand-written kernel.  With DTensor
+parameters (``training.py``'s sharded steps) attention runs on each
+rank's own shards and a vocab-sharded table is looked up vocab-parallel
+(:mod:`horovod_tpu_torch.parallel.layers`); on plain tensors both are
+the plain calls.
 
 :func:`convert_flax_gpt_params` maps the JAX package's flax parameter
 tree (flattened with ``/``) onto this module's ``state_dict``.
@@ -21,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel.layers import embed, on_local_shards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,9 +101,10 @@ class CausalSelfAttention(nn.Module):
     def forward(self, x):
         cfg = self.config
         B, S, _ = x.shape
-        nh = cfg.num_heads
-        hd = cfg.hidden_size // nh
-        q, k, v = (_dense(x, lin, cfg.dtype).view(B, S, nh, hd)
+        hd = cfg.hidden_size // cfg.num_heads
+        # -1 heads: on a DTensor the view is global and the core below
+        # sees this rank's heads (num_heads / tp under tensor parallel).
+        q, k, v = (_dense(x, lin, cfg.dtype).view(B, S, -1, hd)
                    for lin in (self.query, self.key, self.value))
         if cfg.attention_impl == "flash":
             if cfg.dropout > 0.0 and self.training:
@@ -106,21 +113,27 @@ class CausalSelfAttention(nn.Module):
                     "dropout; set dropout=0 or use 'einsum' (same "
                     "guard as the BERT family).")
             from ..ops.flash_attention import flash_attention
-            ctx = flash_attention(q, k, v, causal=True).to(cfg.dtype)
+            ctx = on_local_shards(
+                lambda q, k, v: flash_attention(q, k, v, causal=True),
+                q, k, v).to(cfg.dtype)
         else:
-            scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
-            scores = scores / math.sqrt(hd)
-            causal = torch.ones(S, S, dtype=torch.bool,
-                                device=x.device).tril()
-            scores = torch.where(
-                causal, scores,
-                torch.tensor(torch.finfo(cfg.dtype).min, dtype=scores.dtype,
-                             device=x.device))
-            probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
-            probs = F.dropout(probs, cfg.dropout, self.training)
-            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+            ctx = on_local_shards(self._einsum_core, q, k, v)
         return _dense(ctx.reshape(B, S, cfg.hidden_size), self.out,
                       cfg.dtype)
+
+    def _einsum_core(self, q, k, v):
+        cfg = self.config
+        S, hd = q.shape[1], q.shape[-1]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        scores = scores / math.sqrt(hd)
+        causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(
+            causal, scores,
+            torch.tensor(torch.finfo(cfg.dtype).min, dtype=scores.dtype,
+                         device=q.device))
+        probs = torch.softmax(scores.float(), dim=-1).to(cfg.dtype)
+        probs = F.dropout(probs, cfg.dropout, self.training)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
 class GPTBlock(nn.Module):
@@ -196,10 +209,10 @@ class GPTLMHeadModel(nn.Module):
         cfg = self.config
         S = input_ids.shape[1]
         wte = self.word_embeddings.weight.to(cfg.dtype)
-        pos = torch.arange(S, device=input_ids.device)
-        x = (F.embedding(input_ids, wte) +
-             F.embedding(pos, self.position_embeddings.weight.to(
-                 cfg.dtype))[None])
+        # The first S rows of the table (a slice, not a lookup of
+        # arange(S), so that a DTensor table needs no plain index).
+        x = (embed(input_ids, wte) +
+             self.position_embeddings.weight[:S].to(cfg.dtype)[None])
         x = F.dropout(x, cfg.dropout, self.training)
         for block in self.layers:
             if cfg.remat and self.training:

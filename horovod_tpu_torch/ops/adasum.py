@@ -98,3 +98,37 @@ def adasum_allreduce(arrays: Sequence[torch.Tensor], prescale: float,
     outs = [torch.empty(a.shape, dtype=dtype, device=device) for a in arrays]
     fb.unpack(v.to(dtype), outs, postscale)
     return outs
+
+
+def adasum_reduce_ingraph(x: torch.Tensor, axis_name, n: int,
+                          eps: float = 0.0) -> torch.Tensor:
+    """Adasum over a mesh axis of ``n`` members, inside
+    :func:`horovod_tpu_torch.parallel.shard_map`: the same ladder, each
+    level's exchange a ``ppermute`` with the member ``i ^ 2^k``.  Merges
+    in fp32 with the dots in :func:`acc_dtype`; returns ``x.dtype``."""
+    from ..parallel.collectives import ppermute
+    check_group_size(n)
+    acc = acc_dtype(x.dtype)
+    v = x.float()
+    for k in range(int(math.log2(n))):
+        d = 1 << k
+        u = ppermute(v, [(i, i ^ d) for i in range(n)], axis_name)
+        va, ua = v.to(acc).reshape(-1), u.to(acc).reshape(-1)
+        dot = torch.dot(va, ua)
+        nv = torch.dot(va, va)
+        nu = torch.dot(ua, ua)
+        one = torch.ones((), dtype=acc, device=v.device)
+        cv = torch.where(nv != 0, 1.0 - dot / (2.0 * nv + eps), one)
+        cu = torch.where(nu != 0, 1.0 - dot / (2.0 * nu + eps), one)
+        v = cv.float() * v + cu.float() * u
+    return v.to(x.dtype)
+
+
+def adasum_hierarchical_ingraph(x: torch.Tensor, local_axis: str,
+                                cross_axis: str, n_cross: int
+                                ) -> torch.Tensor:
+    """Hierarchical Adasum: mean over the host-local axis, Adasum across
+    hosts (the reference's AdasumGpuAllreduceOp)."""
+    from ..parallel.collectives import allreduce_mean
+    return adasum_reduce_ingraph(allreduce_mean(x, local_axis), cross_axis,
+                                 n_cross)

@@ -478,3 +478,98 @@ def test_nccl_group_is_remade_three_times_through_basics(cuda,
             basics.shutdown()
         assert not dist.is_initialized()
     assert len(set(cards)) == 1
+
+
+def test_sharded_gpt_step_on_the_card_matches_the_unsharded_model(cuda):
+    # The sharded step at world one (a one-rank gloo group, a {"dp": 1}
+    # mesh on the card): DTensor parameters, the flash kernel on local
+    # shards, and the same loss and gradients as the plain model.
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.parallel import build_mesh
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("cpu:gloo,cuda:gloo",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        cfg = gpt.gpt_tiny_config(dtype=torch.float32,
+                                  attention_impl="flash")
+        init_fn, step_fn, _ = training.make_gpt_train_step(
+            cfg, build_mesh({"dp": 1}))
+        model, opt = init_fn(3)
+        ref = gpt.GPTLMHeadModel(cfg, seed=3).eval()
+        ids = torch.randint(0, cfg.vocab_size, (4, 64),
+                            generator=torch.Generator().manual_seed(1))
+        ref_loss = gpt.lm_loss(ref(ids.cuda()), ids.cuda())
+        ref_loss.backward()
+        fa.launches = 0
+        model, opt, loss = step_fn(model, opt, ids)
+        torch.cuda.synchronize()
+        assert fa.launches == cfg.num_layers
+        assert abs(loss.item() - ref_loss.item()) <= 1e-5 * ref_loss.item()
+        refs = dict(ref.named_parameters())
+        for name, p in model.named_parameters():
+            assert isinstance(p, DTensor) and p.device.type == "cuda"
+            torch.testing.assert_close(p.grad.full_tensor(),
+                                       refs[name].grad, rtol=1e-4,
+                                       atol=1e-6, msg=name)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gather_route_stages_only_where_gloo_carries_cuda(cuda):
+    # The host route of the functional all-gather stages a CUDA tensor
+    # through the host on a world that carries CUDA tensors over gloo and
+    # leaves it to a world that carries them itself (NCCL).
+    import socket
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.ops import dist_ops
+    from horovod_tpu_torch.parallel import collectives
+    x = torch.arange(6.0, device="cuda").reshape(3, 2)
+    ops = torch.ops._c10d_functional
+    for backend, staged in (("cpu:gloo,cuda:gloo", 1),
+                            (dist_ops.process_group_backend("nccl"), 0)):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        dist.init_process_group(backend,
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0)
+        try:
+            collectives._register_route("CUDA")
+            calls = collectives.route_calls
+            out = ops.wait_tensor(ops.all_gather_into_tensor(
+                x, 1, dist.group.WORLD.group_name))
+            torch.cuda.synchronize()
+            assert out.is_cuda and torch.equal(out, x), backend
+            assert collectives.route_calls - calls == staged, backend
+        finally:
+            collectives.remove_gloo_cuda_route()
+            dist.destroy_process_group()
+
+
+def test_bert_base_flash_forward_matches_einsum(cuda):
+    from horovod_tpu_torch.models import bert
+    cfg = bert.bert_base_config(dtype=torch.float32, hidden_dropout=0.0,
+                                attention_dropout=0.0)
+    einsum = bert.BertForMaskedLM(cfg, seed=0)
+    flash = bert.BertForMaskedLM(
+        dataclasses.replace(cfg, attention_impl="flash"), seed=0)
+    ids = torch.randint(0, cfg.vocab_size, (2, 512), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    fa.launches = 0
+    with torch.no_grad():
+        want, got = einsum(ids), flash(ids)
+    torch.cuda.synchronize()
+    assert fa.launches == cfg.num_layers
+    assert (got - want).abs().max().item() <= 1e-3

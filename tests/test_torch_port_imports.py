@@ -51,6 +51,10 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import horovod_tpu_torch.common.optim\n"
         "import horovod_tpu_torch.torch.checkpoint\n"
         "import horovod_tpu_torch.native\n"
+        "import horovod_tpu_torch.parallel, horovod_tpu_torch.training\n"
+        "import horovod_tpu_torch.models.bert\n"
+        "import horovod_tpu_torch.parallel.sharding\n"
+        "import horovod_tpu_torch.parallel.collectives\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
@@ -91,8 +95,8 @@ def test_no_source_imports_jax_or_reference():
 
 
 # Root names of the JAX package whose port is still open (ROADMAP.md
-# Queue 1: items 11, 16 and 17).
-OPEN_ITEMS = {"parallel", "sparse", "serve"}
+# Queue 1: items 16 and 17).
+OPEN_ITEMS = {"sparse", "serve"}
 
 
 def test_root_exports_the_jax_root_names():

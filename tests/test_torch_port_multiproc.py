@@ -96,9 +96,11 @@ def run_port_launcher(args, env, timeout=WORKER_TIMEOUT_S):
 
 
 def run_port_workers(body: str, nproc: int = 2, per_rank_env=None,
-                     extra_env=None, before_init: str = ""):
+                     extra_env=None, before_init: str = "",
+                     timeout: float = WORKER_TIMEOUT_S):
     """``body`` in ``nproc`` port workers (sees RANK/SIZE/np/torch/hvd);
-    the env contract and test defaults of ``multiproc.run_workers``.
+    the env contract and test defaults of ``multiproc.run_workers``;
+    a worker still running ``timeout`` seconds into its wait is killed.
     ``before_init`` runs before ``hvd.init()`` (sees RANK from the env
     contract).  Returns [(returncode, output)]."""
     coord_port, ctrl_port = free_ports(2)
@@ -130,7 +132,7 @@ def run_port_workers(body: str, nproc: int = 2, per_rank_env=None,
     results = []
     for p in procs:
         try:
-            out, _ = p.communicate(timeout=WORKER_TIMEOUT_S)
+            out, _ = p.communicate(timeout=timeout)
         except subprocess.TimeoutExpired:
             p.kill()
             out, _ = p.communicate()
