@@ -6,8 +6,12 @@ the device trace), runs the NCCL backend in a world of one (made and
 destroyed three times, as an elastic reset does), trains it at two ranks
 sharing the card under the native coordinator and then under each
 coordinator in turns, trains it elastically at 2, 3 and 2 ranks,
-tunes it, preempts it and resumes it at two ranks, and trains it and
-BERT-base sharded over four ranks (fsdp x tp and dp x tp DTensor steps).
+tunes it, preempts it and resumes it at two ranks, trains it and
+BERT-base sharded over four ranks (fsdp x tp and dp x tp DTensor steps),
+runs the reference's ResNet-50 synthetic benchmark in a world of one and
+at two ranks, and runs ring and Ulysses attention at GPT-2 small's
+attention widths and the pipeline x expert-parallel step over four
+ranks.
 
     python3 chip_smoke.py
 
@@ -53,6 +57,19 @@ heads.  Each model's losses at steps 1 and 2 (before and after one
 update) must equal those of the unsharded model on one rank, with the
 same optimizer and batch (computed here first), within ``STEP1_RTOL``
 and ``STEP2_RTOL``.
+
+The resnet50 phase runs the reference's pytorch_synthetic_benchmark.py
+on the port's ``ResNet50`` (224x224, 1000 classes, bf16, batch 32 per
+rank, ``SGD(lr=0.01 x size)`` in ``hvd.DistributedOptimizer``) here in a
+world of one, then launches ``chip_smoke.py --resnet-worker`` with ``-np
+2 -H localhost:2``: each rank's step-1 and step-2 losses must equal a
+one-rank computation of its half (``resnet_oracle``), and the launch
+also holds ``hvd.SyncBatchNorm`` against ``nn.BatchNorm2d``.  The
+context_parallel phase launches ``chip_smoke.py --cp-worker`` with ``-np
+4 -H localhost:4``: ring and Ulysses attention on ``{"sp": 4}`` with
+``[1, 2048, 12, 64]`` per rank, against ``reference_attention`` on the
+whole 8192 tokens, then ``training``'s ring-attention and pipeline-MoE
+dry runs at full width.
 """
 
 import ast
@@ -557,6 +574,15 @@ def phase_fusion_kernel() -> dict:
         fusion_case(f"gpt2_bf16_response{i}",
                     [grads[n].to(torch.bfloat16) for n in names],
                     0.5, 1.0 / 3.0, errors)
+    # ResNet-50's 161 fp32 gradients (resnet50's two-rank path).
+    rshapes = resnet50_gradient_shapes()
+    rgrads = {name: torch.randn(shape, device="cuda", generator=g)
+              for name, shape in rshapes}
+    rresponses = fused_responses(rshapes, torch.float32)
+    for i, names in enumerate(rresponses):
+        fusion_case(f"resnet50_fp32_response{i}", [rgrads[n] for n in names],
+                    1.0, 0.5, errors)
+    del rgrads
     cpu = torch.Generator().manual_seed(6)
     for dtype, high in ((torch.int32, 1 << 20), (torch.uint8, 256)):
         ints = [torch.randint(0, high, (n,), generator=cpu).to(dtype).cuda()
@@ -631,6 +657,8 @@ def phase_fusion_kernel() -> dict:
     nbytes = 4 * numel
     bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
     emit("fusion_kernel", cases=len(errors), bit_exact=True,
+         resnet50={"tensors": len(rshapes),
+                   "responses": [len(names) for names in rresponses]},
          max_abs_err=max(errors.values()), tensors=len(shapes),
          elements=numel, bytes_per_step=nbytes,
          responses=[len(names) for names in responses],
@@ -2259,6 +2287,572 @@ def phase_sharded_train() -> dict:
             "fusion": 0}
 
 
+# ---------------------------------------------------------------------------
+# resnet50: the reference's synthetic benchmark
+# ---------------------------------------------------------------------------
+
+RESNET_SEED = 7            # weights (rank 0's) and images of the phase
+RESNET_BATCH = 32          # images per rank, 224x224, 1000 classes
+RESNET_WARMUP = 2          # warm-up batches, then iterations of batches
+RESNET_ITERS, RESNET_BATCHES = 3, 5
+RESNET_LR = 0.01           # times the world size, as the reference scales
+RESNET_TIMEOUT_S = 600
+# Step-1 losses against the one-rank computation of each rank's half
+# (relative): the same weights and images, so only the convolution
+# algorithms' order of summation can differ.
+RESNET_STEP1_RTOL = 1e-3
+# Step-2 losses, after one averaged SGD update, against the one-rank
+# oracle: above the reordered gradient's gap, below the gap of an update
+# that missed a rank's half (resnet_oracle).
+RESNET_STEP2_RTOL = 1e-3
+SYNC_BN_SHAPE = (RESNET_BATCH, 64, 112, 112)  # ResNet-50's first BN input
+# SyncBatchNorm against nn.BatchNorm2d on the two halves concatenated,
+# fp32, each error relative to the largest value compared: float64
+# moments against cuDNN's fp32 sums over 802,816 values per channel.
+SYNC_BN_RTOL = 1e-4
+
+
+def resnet50_model(seed: int):
+    from horovod_tpu_torch.models import resnet
+    return resnet.ResNet50(num_classes=1000, seed=seed).train()
+
+
+def resnet_batch(rank: int) -> tuple:
+    """Rank ``rank``'s synthetic batch, as the reference makes it (random
+    images, random labels), drawn on the card from a seed."""
+    g = torch.Generator(device="cuda").manual_seed(RESNET_SEED * 100 + rank)
+    data = torch.randn(RESNET_BATCH, 3, 224, 224, device="cuda", generator=g)
+    target = torch.randint(0, 1000, (RESNET_BATCH,), device="cuda",
+                           generator=g)
+    return data, target
+
+
+def resnet50_gradient_shapes():
+    """(name, shape) of ResNet-50's 161 trainable tensors, in the order
+    their gradients become ready (the reverse of registration)."""
+    from horovod_tpu_torch.models import resnet
+    model = resnet.ResNet50(num_classes=1000, device="meta")
+    return [(name, tuple(p.shape))
+            for name, p in model.named_parameters()][::-1]
+
+
+def params_sha256(model) -> str:
+    digest = hashlib.sha256()
+    for name, p in sorted(model.named_parameters()):
+        digest.update(name.encode())
+        digest.update(p.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def resnet_benchmark() -> dict:
+    """The reference's pytorch_synthetic_benchmark.py on the port's
+    ResNet50 in this process's world (``hvd.init()`` already called):
+    bf16 compute, ``SGD(lr=0.01 x size)`` inside
+    ``hvd.DistributedOptimizer``, ``broadcast_parameters`` of the state
+    dict from rank 0 (each rank starts from its own seed), the same
+    batch every step; ``RESNET_WARMUP`` batches, then ``RESNET_ITERS``
+    iterations of ``RESNET_BATCHES``.  img/s of an iteration is
+    ``batch x batches / its time`` (each step ends in a synchronize)."""
+    rank, size = hvd.rank(), hvd.size()
+    model = resnet50_model(RESNET_SEED + rank)
+    opt = torch.optim.SGD(model.parameters(), lr=RESNET_LR * size)
+    opt = hvd.DistributedOptimizer(
+        opt, named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    data, target = resnet_batch(rank)
+    backend = basics._state().backend
+    stats = getattr(backend, "stats", {})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fb.launches.update({k: 0 for k in fb.launches})
+    fb.plain_calls.update({k: 0 for k in fb.plain_calls})
+    stats.update({k: 0 for k in stats})
+    collective_s0 = collective_seconds()
+    losses, step_ms = [], []
+    for _ in range(RESNET_WARMUP + RESNET_ITERS * RESNET_BATCHES):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = F.cross_entropy(model(data), target)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    steps = len(step_ms)
+    timed = step_ms[RESNET_WARMUP:]
+    img_s = [RESNET_BATCH * RESNET_BATCHES /
+             (sum(timed[i:i + RESNET_BATCHES]) / 1e3)
+             for i in range(0, len(timed), RESNET_BATCHES)]
+    return {"rank": rank, "size": size, "backend": backend.name,
+            "losses": losses, "step_ms": step_ms,
+            "median_step_ms": statistics.median(timed),
+            "img_s_per_iter": img_s,
+            "img_s": statistics.mean(img_s),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "fused_responses_per_step":
+            stats.get("flat_allreduces", 0) / steps,
+            "fused_bytes_per_step": stats.get("allreduce_bytes", 0) / steps,
+            "collective_ms_per_step":
+            (collective_seconds() - collective_s0) / steps * 1e3,
+            "fusion": dict(fb.launches),
+            "fusion_plain_calls": dict(fb.plain_calls),
+            "params_sha256": params_sha256(model)}
+
+
+def sync_bn_check() -> dict:
+    """``hvd.SyncBatchNorm(64)`` on this rank's fp32 half of a
+    ``[2 x 32, 64, 112, 112]`` batch against ``nn.BatchNorm2d`` on the
+    whole batch, on this rank: output and input gradient (this rank's
+    half), weight and bias gradients (summed over the ranks), running
+    mean and variance; the errors relative to the largest reference
+    value."""
+    size, rank = hvd.size(), hvd.rank()
+    halves = []
+    for r in range(size):
+        g = torch.Generator(device="cuda").manual_seed(300 + r)
+        halves.append((torch.randn(SYNC_BN_SHAPE, device="cuda",
+                                   generator=g) * (r + 1) + r,
+                       torch.randn(SYNC_BN_SHAPE, device="cuda",
+                                   generator=g)))
+    c = SYNC_BN_SHAPE[1]
+    sync = hvd.SyncBatchNorm(c).cuda()
+    ref = torch.nn.BatchNorm2d(c).cuda()
+    for bn in (sync, ref):
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, c))
+            bn.bias.copy_(torch.linspace(-1.0, 1.0, c))
+    x = halves[rank][0].clone().requires_grad_()
+    y = sync(x)
+    y.backward(halves[rank][1])
+    dw = hvd.allreduce(sync.weight.grad, op=hvd.Sum, name="sync_bn.dw")
+    db = hvd.allreduce(sync.bias.grad, op=hvd.Sum, name="sync_bn.db")
+    xr = torch.cat([h[0] for h in halves]).requires_grad_()
+    yr = ref(xr)
+    yr.backward(torch.cat([h[1] for h in halves]))
+    rows = slice(rank * SYNC_BN_SHAPE[0], (rank + 1) * SYNC_BN_SHAPE[0])
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    errors = {"output": rel(y, yr[rows]),
+              "input_grad": rel(x.grad, xr.grad[rows]),
+              "weight_grad": rel(dw, ref.weight.grad),
+              "bias_grad": rel(db, ref.bias.grad),
+              "running_mean": rel(sync.running_mean, ref.running_mean),
+              "running_var": rel(sync.running_var, ref.running_var)}
+    del halves, x, y, xr, yr
+    torch.cuda.empty_cache()
+    return errors
+
+
+def resnet_worker():
+    """One rank of the resnet50 phase (``--resnet-worker``), started by
+    the launcher: the benchmark, then the SyncBatchNorm check; prints one
+    RESULT line."""
+    hvd.init()
+    out = resnet_benchmark()
+    out["server"] = server_of_rank0()
+    out["sync_bn"] = sync_bn_check()
+    hvd.shutdown()
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def resnet_oracle() -> dict:
+    """Each rank's step-1 and step-2 losses computed on one rank: the
+    step-1 loss of each half on rank 0's initial weights, and the step-2
+    loss of each half after one SGD step (lr 0.01 x 2) on the two halves'
+    gradients averaged.  Two more step-2 losses bracket the gate: after
+    the same average of gradients computed again, in the other order
+    (the rounding a correct two-rank step may show: cuDNN's backward
+    does not fix its order of summation), and after an update from rank
+    0's half alone (what a step whose allreduce drops a rank gives)."""
+    model = resnet50_model(RESNET_SEED)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    batches = [resnet_batch(r) for r in range(2)]
+
+    def loss_of(r):
+        return F.cross_entropy(model(batches[r][0]), batches[r][1])
+
+    def grads_of(order):
+        out = {}
+        for r in order:
+            model.zero_grad()
+            loss = loss_of(r)
+            loss.backward()
+            out[r] = ([p.grad.clone() for p in model.parameters()],
+                      loss.item())
+        return out
+
+    def step2_losses(update):
+        model.load_state_dict(start)
+        with torch.no_grad():
+            for p, u in zip(model.parameters(), update):
+                p.sub_(RESNET_LR * 2 * u)
+            return [loss_of(r).item() for r in range(2)]
+
+    first = grads_of((0, 1))
+    again = grads_of((1, 0))
+    avg = [(a + b) * 0.5 for a, b in zip(first[0][0], first[1][0])]
+    reordered = [b * 0.5 + a * 0.5 for a, b in zip(again[0][0],
+                                                     again[1][0])]
+    out = {"step1": [first[r][1] for r in range(2)],
+           "step2": step2_losses(avg),
+           "reordered_step2": step2_losses(reordered),
+           "half_step2": step2_losses(first[0][0])}
+    del model, start, batches, first, again, avg, reordered
+    torch.cuda.empty_cache()
+    return out
+
+
+def rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def phase_resnet50() -> dict:
+    """ResNet-50 on synthetic 224x224 images (the reference's headline
+    benchmark): a world of one in this process, then two ranks on this
+    card launched by the port's launcher (``-np 2 -H localhost:2``,
+    gloo, ``HOROVOD_TPU_NATIVE=1``), each with its own 32 images.  The
+    two-rank losses at step 1 and step 2 are held against
+    :func:`resnet_oracle`; the ranks' parameters hash alike; every
+    fused response is packed and unpacked by the fusion kernel; the
+    launch also holds ``SyncBatchNorm`` against ``nn.BatchNorm2d``."""
+    t0 = time.perf_counter()
+    oracle = resnet_oracle()
+    hvd.init()
+    one = resnet_benchmark()
+    hvd.shutdown()
+    emit("resnet50_world1", model="ResNet50 bf16, 224x224, 1000 classes",
+         batch=RESNET_BATCH, **{k: v for k, v in one.items()
+                                if k not in ("fusion", "fusion_plain_calls")})
+    env = dict(os.environ, PYTHONPATH=REPO, HOROVOD_TPU_NATIVE="1")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+           "-np", "2", "-H", "localhost:2", sys.executable,
+           os.path.abspath(__file__), "--resnet-worker"]
+    results = launch_results(cmd, env, 2, RESNET_TIMEOUT_S, "resnet50")
+    gaps = {
+        "step1": [rel_gap(r["losses"][0], oracle["step1"][r["rank"]])
+                  for r in results],
+        "step2": [rel_gap(r["losses"][1], oracle["step2"][r["rank"]])
+                  for r in results],
+        "reordered_step2": [rel_gap(oracle["reordered_step2"][r],
+                                    oracle["step2"][r]) for r in range(2)],
+        "half_step2": [rel_gap(oracle["half_step2"][r],
+                               oracle["step2"][r]) for r in range(2)]}
+    emit("resnet50", model="ResNet50 bf16, 224x224, 1000 classes",
+         ranks=2, backend=results[0]["backend"],
+         server=results[0]["server"], batch_per_rank=RESNET_BATCH,
+         warmup=RESNET_WARMUP, iterations=RESNET_ITERS,
+         batches_per_iteration=RESNET_BATCHES,
+         img_s_per_rank=[r["img_s"] for r in results],
+         img_s_total=sum(r["img_s"] for r in results),
+         img_s_per_iter={r["rank"]: r["img_s_per_iter"] for r in results},
+         img_s_world1=one["img_s"],
+         median_step_ms=[r["median_step_ms"] for r in results],
+         median_step_ms_world1=one["median_step_ms"],
+         max_memory_allocated=[r["max_memory_allocated"] for r in results],
+         max_memory_allocated_world1=one["max_memory_allocated"],
+         fused_responses_per_step=results[0]["fused_responses_per_step"],
+         fused_bytes_per_step=results[0]["fused_bytes_per_step"],
+         collective_ms_per_step=[r["collective_ms_per_step"]
+                                 for r in results],
+         fusion_launches={r["rank"]: r["fusion"] for r in results},
+         losses={r["rank"]: r["losses"] for r in results},
+         oracle=oracle, rel_gaps=gaps, step2_rtol=RESNET_STEP2_RTOL,
+         params_sha256=[r["params_sha256"] for r in results],
+         sync_bn={r["rank"]: r["sync_bn"] for r in results},
+         sync_bn_rtol=SYNC_BN_RTOL, seconds=time.perf_counter() - t0)
+    assert one["size"] == 1 and all(math.isfinite(x) for x in one["losses"])
+    for r in results:
+        assert r["backend"] == "gloo", r["backend"]
+        assert r["server"] == "NativeCoordinatorServer", r["server"]
+        assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+        assert r["fusion"]["pack"] > 0 and r["fusion"]["unpack"] > 0, r
+        assert r["fusion_plain_calls"] == {"pack": 0, "unpack": 0}, r
+        assert all(e <= SYNC_BN_RTOL for e in r["sync_bn"].values()), \
+            r["sync_bn"]
+    assert all(g <= RESNET_STEP1_RTOL for g in gaps["step1"]), gaps
+    assert all(g <= RESNET_STEP2_RTOL for g in gaps["step2"]), gaps
+    # The gate would see an update that missed a rank's gradient.
+    assert all(g > RESNET_STEP2_RTOL for g in gaps["half_step2"]), gaps
+    assert len({r["params_sha256"] for r in results}) == 1, \
+        "parameters differ between the ranks"
+    return {"flash": 0, "fusion": sum(r["fusion"]["pack"] +
+                                      r["fusion"]["unpack"]
+                                      for r in results)}
+
+
+def launch_results(cmd, env, ranks: int, timeout: float, phase: str
+                   ) -> list:
+    """Run a launcher command to its end (killed past ``timeout``) and
+    return its workers' RESULT lines in rank order; raises unless it
+    exits 0 with one line per rank."""
+    proc, lines, reader = start_launcher(cmd, env)
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        kill_tree(proc.pid)
+        proc.wait()
+    reader.join(timeout=30)
+    out = "".join(lines)
+    results = result_lines(out)
+    if proc.returncode != 0 or sorted(results) != list(range(ranks)):
+        print(out[-20000:], flush=True)
+        raise RuntimeError(f"{phase}: the launcher exited "
+                           f"{proc.returncode} with RESULT lines of ranks "
+                           f"{sorted(results)}")
+    return [results[r] for r in range(ranks)]
+
+
+# ---------------------------------------------------------------------------
+# context_parallel: ring and Ulysses attention, the two dry runs
+# ---------------------------------------------------------------------------
+
+CP_SEQ, CP_HEADS, CP_DIM = 2048, 12, 64   # per rank: GPT-2 small's heads
+CP_RANKS = 4
+CP_REPS = 3                 # fwd+bwd calls per case; the median of 2..3
+CP_TIMEOUT_S = 600
+# Outputs and q/k/v gradients against reference_attention on the whole
+# sequence, each error relative to the largest reference value: fp32
+# (scores, softmax and products in another order), bf16 (one rounding of
+# the output or gradient to bf16 apart).
+CP_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+PMOE_MICROBATCHES, PMOE_TOKENS, PMOE_DIM = 4, 1024, 768
+# The pipeline-MoE step's fp32 loss and gradients against the sequential
+# model on one rank in fp64, relative to the largest value: above the
+# same model's own fp32 error (its gradients sum thousands of terms of
+# both signs), below a step that drops the experts' cotangents from the
+# ep peer (pmoe_oracle).
+PMOE_RTOL = 1e-3
+
+
+def cp_inputs(dtype):
+    """Whole q, k, v and the output cotangent, [1, 4 x 2048, 12, 64], on
+    the card from a seed (the same on every rank)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    shape = (1, CP_RANKS * CP_SEQ, CP_HEADS, CP_DIM)
+    q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
+               for _ in range(3))
+    return q, k, v, torch.randn(shape, device="cuda", generator=g)
+
+
+def attention_fwd_bwd(fn, q, k, v, c):
+    """``fn(q, k, v)`` and the gradients of ``sum(out * c)``."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fn(q, k, v)
+    (out.float() * c).sum().backward()
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def pmoe_oracle(Ws, gate_w, expert_W, x, dtype):
+    """The pipeline-MoE step on one rank in ``dtype``: the stages composed
+    in order; each ep rank routes its own tokens (here the same ones)
+    through its own copy of the stage and gate kernels with
+    ``top1_dispatch`` at the step's capacity, the experts shared.
+    Returns the loss, autograd's gradients of the copies' summed losses
+    (those of copy 0 for the kernels), and the experts' gradient of copy
+    0's loss alone: what a step whose all-to-all backward dropped the
+    peers' cotangents would give."""
+    from horovod_tpu_torch.parallel.moe import top1_dispatch
+    Ws, gate_w, expert_W, x = (t.to(dtype) for t in (Ws, gate_w, expert_W,
+                                                     x))
+    S, E = gate_w.shape[0], gate_w.shape[-1]
+    capacity = max(1, int(4.0 * x.shape[1] / E))
+    copies = [(Ws.clone().requires_grad_(), gate_w.clone().requires_grad_())
+              for _ in range(E)]
+    experts = expert_W.clone().requires_grad_()
+    losses = []
+    for W_e, g_e in copies:
+        h = x
+        for s in range(S):
+            h = torch.tanh(h @ W_e[s])
+            ys = []
+            for m in range(h.shape[0]):
+                d, comb, _ = top1_dispatch(h[m] @ g_e[s], capacity)
+                buckets = torch.einsum("tec,td->ecd", d.to(dtype), h[m])
+                out = torch.stack([torch.tanh(buckets[j] @ experts[s, j])
+                                   for j in range(E)])
+                ys.append(torch.einsum("tec,ecd->td", comb.to(dtype), out))
+            h = h + torch.stack(ys)
+        losses.append(torch.mean(h ** 2))
+    grads = torch.autograd.grad(sum(losses), (copies[0][0], copies[0][1],
+                                              experts), retain_graph=True)
+    one_copy = torch.autograd.grad(losses[0], experts)[0]
+    return (sum(losses) / E).detach(), grads, one_copy
+
+
+def cp_worker():
+    """One rank of the context_parallel phase (``--cp-worker``): ring and
+    Ulysses attention on ``{"sp": 4}``, causal and not, fp32 and bf16,
+    forward and backward through ``shard_map``, rank 0 holding each
+    against ``reference_attention`` on the whole sequence; then the two
+    dry runs at full width, rank 0 holding the pipeline-MoE step against
+    its sequential oracle in fp64.  Prints one RESULT line."""
+    import torch.distributed as dist
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.parallel import (build_mesh, collectives,
+                                            reference_attention,
+                                            ring_attention, shard_map,
+                                            ulysses_attention)
+    from horovod_tpu_torch.parallel.mesh import P
+    hvd.init()
+    rank = hvd.rank()
+    out = {"rank": rank, "backend": basics._state().backend.name,
+           "cases": {}}
+    mesh = build_mesh({"sp": CP_RANKS})
+    torch.cuda.reset_peak_memory_stats()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for causal in (False, True):
+            q, k, v, c = cp_inputs(dtype)
+            got = {}
+            for fn in (ring_attention, ulysses_attention):
+                name = f"{fn.__name__}_{dname}_" + \
+                    ("causal" if causal else "full")
+                run = shard_map(
+                    lambda a, b, cc, fn=fn: fn(a, b, cc, axis_name="sp",
+                                               causal=causal),
+                    mesh, P(None, "sp"), P(None, "sp"))
+                ms = []
+                for i in range(CP_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if i == 0:
+                        with collectives.count_collectives() as counted:
+                            res = attention_fwd_bwd(run, q, k, v, c)
+                    else:
+                        res = attention_fwd_bwd(run, q, k, v, c)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                got[name] = res
+                out["cases"][name] = {
+                    "step_ms": ms, "median_ms": statistics.median(ms[1:]),
+                    "collective_bytes": counted.bytes,
+                    "collective_calls": counted.calls}
+            if rank == 0:
+                want = attention_fwd_bwd(
+                    lambda a, b, cc: reference_attention(a, b, cc,
+                                                         causal=causal),
+                    q, k, v, c)
+                for name, res in got.items():
+                    out["cases"][name]["rel_err"] = {
+                        part: ((g.float() - w.float()).abs().max() /
+                               w.float().abs().max()).item()
+                        for part, g, w in zip(("out", "dq", "dk", "dv"),
+                                              res, want)}
+                del want
+            del got, res, q, k, v, c
+            torch.cuda.empty_cache()
+            dist.barrier()
+    out["attention_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    training.run_ring_attention_dry_run(CP_RANKS, seq_per_dev=CP_SEQ,
+                                        heads=CP_HEADS, dim=CP_DIM)
+    torch.cuda.synchronize()
+    out["ring_dry_run_ms"] = (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, pmesh = training.run_pipeline_moe_dry_run(
+        CP_RANKS, microbatches=PMOE_MICROBATCHES, tokens=PMOE_TOKENS,
+        dim=PMOE_DIM)
+    torch.cuda.synchronize()
+    out["pmoe_dry_run_ms"] = (time.perf_counter() - t0) * 1e3
+    out["pmoe_mesh"] = dict(zip(pmesh.mesh_dim_names, pmesh.mesh.shape))
+    axes = training.factor_mesh_axes(CP_RANKS, names=("pp", "ep", "dp"))
+    args = [torch.from_numpy(a).cuda() for a in training.pipeline_moe_inputs(
+        axes, PMOE_MICROBATCHES, PMOE_TOKENS, PMOE_DIM)]
+    step = training.make_pipeline_moe_step(pmesh)
+    with collectives.count_collectives() as counted:
+        step_loss, grads = step(*args)
+    torch.cuda.synchronize()
+    out["pmoe_loss"] = loss
+    out["pmoe_step_loss"] = step_loss.item()
+    out["pmoe_collective_bytes"] = counted.bytes
+    out["pmoe_collective_calls"] = counted.calls
+    out["pmoe_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        def rel(a, b):
+            return ((a.double() - b).abs().max() / b.abs().max()).item()
+
+        names = ("dWs", "dgate", "dexpert")
+        want_loss, want, one_copy = pmoe_oracle(*args, torch.float64)
+        fp32_loss, fp32, _ = pmoe_oracle(*args, torch.float32)
+        out["pmoe_oracle_loss"] = want_loss.item()
+        out["pmoe_rel_err"] = {n: rel(g, w)
+                               for n, g, w in zip(names, grads, want)}
+        out["pmoe_rel_err"]["loss"] = rel_gap(loss, want_loss.item())
+        # The floor: the same model in fp32 on one rank, against fp64.
+        out["pmoe_fp32_oracle_rel_err"] = {
+            n: rel(g, w) for n, g, w in zip(names, fp32, want)}
+        out["pmoe_fp32_oracle_rel_err"]["loss"] = rel_gap(
+            fp32_loss.item(), want_loss.item())
+        out["pmoe_fault_rel_err"] = rel(one_copy, want[2])
+    hvd.shutdown()
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def phase_context_parallel() -> dict:
+    """Ring and Ulysses attention at GPT-2 small's attention widths (12
+    heads of 64) over four ranks on this card, one launch (``-np 4 -H
+    localhost:4``, gloo) of this script's ``--cp-worker``: q, k and v of
+    ``[1, 2048, 12, 64]`` per rank (8192 tokens in all), causal and not,
+    fp32 and bf16, outputs and q/k/v gradients held against
+    ``reference_attention`` on the whole sequence within ``CP_RTOL``;
+    ``run_ring_attention_dry_run`` at that width NaN-free;
+    ``run_pipeline_moe_dry_run(4, 4, 1024, 768)`` on ``{pp: 2, ep: 2,
+    dp: 1}`` held against its sequential oracle (fp64) within
+    ``PMOE_RTOL``."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+           "-np", str(CP_RANKS), "-H", f"localhost:{CP_RANKS}",
+           sys.executable, os.path.abspath(__file__), "--cp-worker"]
+    results = launch_results(cmd, env, CP_RANKS, CP_TIMEOUT_S,
+                             "context_parallel")
+    r0 = results[0]
+    emit("context_parallel", ranks=CP_RANKS, backend=r0["backend"],
+         per_rank_shape=[1, CP_SEQ, CP_HEADS, CP_DIM],
+         global_seq=CP_RANKS * CP_SEQ,
+         cases={name: {**case, "median_ms_by_rank":
+                       [r["cases"][name]["median_ms"] for r in results]}
+                for name, case in r0["cases"].items()},
+         rtol=CP_RTOL,
+         attention_max_memory_allocated=[
+             r["attention_max_memory_allocated"] for r in results],
+         ring_dry_run_ms=[r["ring_dry_run_ms"] for r in results],
+         pipeline_moe={
+             "mesh": r0["pmoe_mesh"], "microbatches": PMOE_MICROBATCHES,
+             "tokens": PMOE_TOKENS, "dim": PMOE_DIM,
+             "loss": r0["pmoe_loss"], "oracle_loss": r0["pmoe_oracle_loss"],
+             "rel_err": r0["pmoe_rel_err"], "rtol": PMOE_RTOL,
+             "fp32_oracle_rel_err": r0["pmoe_fp32_oracle_rel_err"],
+             "fault_rel_err": r0["pmoe_fault_rel_err"],
+             "dry_run_ms": [r["pmoe_dry_run_ms"] for r in results],
+             "collective_bytes": r0["pmoe_collective_bytes"],
+             "collective_calls": r0["pmoe_collective_calls"],
+             "max_memory_allocated": [r["pmoe_max_memory_allocated"]
+                                      for r in results]},
+         seconds=time.perf_counter() - t0)
+    for name, case in r0["cases"].items():
+        tol = CP_RTOL[name.split("_")[2]]
+        assert all(e <= tol for e in case["rel_err"].values()), (name, case)
+    assert r0["pmoe_mesh"] == {"pp": 2, "ep": 2, "dp": 1}, r0["pmoe_mesh"]
+    assert all(e <= PMOE_RTOL for e in r0["pmoe_rel_err"].values()), \
+        r0["pmoe_rel_err"]
+    # The gate would see the experts' gradient of one ep rank alone.
+    assert r0["pmoe_fault_rel_err"] > PMOE_RTOL, r0["pmoe_fault_rel_err"]
+    for r in results:
+        assert r["backend"] == "gloo", r["backend"]
+        assert math.isfinite(r["pmoe_loss"]) and \
+            r["pmoe_loss"] == r0["pmoe_loss"] == r["pmoe_step_loss"], r
+    return {"flash": 0, "fusion": 0}
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -2274,6 +2868,12 @@ def main():
         return
     if sys.argv[1:] == ["--sharded-worker"]:
         sharded_worker()
+        return
+    if sys.argv[1:] == ["--resnet-worker"]:
+        resnet_worker()
+        return
+    if sys.argv[1:] == ["--cp-worker"]:
+        cp_worker()
         return
     CARD = card()
     emit("device", kind=torch.cuda.get_device_name(0),
@@ -2291,7 +2891,10 @@ def main():
     elastic = phase_elastic()
     durable = phase_tune_durable()
     sharded = phase_sharded_train()
-    paths = (launches, coordinator, elastic, durable, sharded)
+    resnet50 = phase_resnet50()
+    context_parallel = phase_context_parallel()
+    paths = (launches, coordinator, elastic, durable, sharded, resnet50,
+             context_parallel)
     flash_row["launches"] = sum(p["flash"] for p in paths)
     fusion_row["launches"] = sum(p["fusion"] for p in paths)
     emit("script", seconds=time.perf_counter() - t0)

@@ -1,15 +1,23 @@
-from .bert import (BertConfig, BertForMaskedLM, bert_base_config,
-                   bert_large_config, bert_tiny_config,
+from .resnet import (ResNet, ResNet18, ResNet34, ResNet50, ResNet101,
+                     ResNet152, convert_flax_resnet_params)
+from .bert import (BertConfig, BertEncoder, BertForMaskedLM,
+                   bert_base_config, bert_large_config, bert_tiny_config,
                    convert_flax_bert_params, mlm_loss)
 from .gpt import (GPTConfig, GPTLMHeadModel, convert_flax_gpt_params,
                   gpt2_medium_config, gpt2_small_config, gpt_tiny_config,
                   lm_loss)
+from .mnist import (MnistCNN, MnistMLP, convert_flax_mnist_params,
+                    cross_entropy_loss)
 
 __all__ = [
-    "BertConfig", "BertForMaskedLM", "bert_base_config",
+    "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
+    "ResNet152", "convert_flax_resnet_params",
+    "BertConfig", "BertEncoder", "BertForMaskedLM", "bert_base_config",
     "bert_large_config", "bert_tiny_config", "convert_flax_bert_params",
     "mlm_loss",
     "GPTConfig", "GPTLMHeadModel", "convert_flax_gpt_params",
     "gpt2_small_config", "gpt2_medium_config", "gpt_tiny_config",
     "lm_loss",
+    "MnistCNN", "MnistMLP", "convert_flax_mnist_params",
+    "cross_entropy_loss",
 ]

@@ -4,8 +4,11 @@
 :func:`shard_map` (:mod:`.collectives`), and the layers a model calls
 on DTensor parameters (:mod:`.layers`).
 
-Counterpart of :mod:`horovod_tpu.parallel`, less its attention names
-(ring and Ulysses attention, still to be ported) and its ``_compat``
+Sequence-parallel attention (:mod:`.attention`), expert parallelism
+(:mod:`.moe`) and pipeline parallelism (:mod:`.pipeline`) run inside
+:func:`shard_map` on those collectives.
+
+Counterpart of :mod:`horovod_tpu.parallel`, less its ``_compat``
 module: ``pvary`` marks a value as varying over mesh axes for JAX's
 replication typing, which PyTorch does not have.
 """
@@ -26,3 +29,7 @@ __all__ = [
     "alltoall", "ppermute", "neighbor_shift", "axis_index", "axis_size",
     "hierarchical_allreduce_sum",
 ]
+
+from .attention import (reference_attention, ring_attention,
+                        ulysses_attention)
+__all__ += ["ring_attention", "ulysses_attention", "reference_attention"]

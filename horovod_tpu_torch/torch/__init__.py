@@ -10,8 +10,8 @@ on the device they came in on.  Handles returned by the async API are
 :class:`horovod_tpu_torch.ops.Handle` futures; ``synchronize`` maps to
 the reference's handle-table WaitForCompletion (torch/mpi_ops.py:
 823-846).  Elastic training is ``hvd.elastic``
-(:mod:`horovod_tpu_torch.torch.elastic`); ``SyncBatchNorm`` is not ported
-yet (it comes with ResNet, ROADMAP.md Queue 1, item 14).
+(:mod:`horovod_tpu_torch.torch.elastic`); ``SyncBatchNorm`` reduces its
+moments with the port's allreduce on the tensors' device.
 """
 
 import pickle
@@ -47,7 +47,7 @@ __all__ = [
     "synchronize", "poll", "join", "barrier",
     "DistributedOptimizer", "broadcast_parameters",
     "broadcast_optimizer_state", "broadcast_object", "allgather_object",
-    "elastic",
+    "SyncBatchNorm", "elastic",
 ]
 
 
@@ -375,4 +375,5 @@ def allgather_object(obj, name="allgather_object",
 from .optimizer import (DistributedOptimizer,              # noqa: E402
                         _DistributedOptimizer,
                         _DistributedAdasumOptimizer)
+from .sync_batch_norm import SyncBatchNorm                 # noqa: E402
 from . import elastic                                      # noqa: E402

@@ -16,6 +16,10 @@ parameter's placement (the data-parallel all-reduce).  Attention runs
 on each rank's own shards (``parallel.layers.on_local_shards``), which is
 where the flash kernel sees local tensors.
 
+The pipeline x expert-parallel and ring-attention dry runs hold no
+DTensor: their bodies run per rank inside ``parallel.shard_map`` on
+plain tensors, with the collectives explicit.
+
 This is not the Horovod per-gradient API (``horovod_tpu_torch.torch``).
 The steps run eagerly; there is no compiled program.
 """
@@ -321,3 +325,111 @@ def run_gpt_dry_run(n_devices: int, batch_size: int = 8,
     model, opt = init_fn(1, ids)
     model, opt, loss = step_fn(model, opt, ids)
     return float(loss), mesh
+
+
+# ---------------------------------------------------------------------------
+# pipeline x expert parallelism, and ring attention
+# ---------------------------------------------------------------------------
+
+def pipeline_moe_inputs(axes: Dict[str, int], microbatches: int = 4,
+                        tokens: int = 8, dim: int = 16):
+    """The pipeline-MoE dry run's inputs, the JAX package's numpy draws
+    (``RandomState(0)``): stage kernels ``[S, dim, dim]``, gates ``[S,
+    dim, E]``, experts ``[S, E, dim, dim]`` and microbatches ``[M, dp x
+    tokens, dim]``, fp32 numpy arrays."""
+    import numpy as np
+    S, E = axes["pp"], axes["ep"]
+    rng = np.random.RandomState(0)
+    Ws = rng.randn(S, dim, dim).astype(np.float32) * 0.2
+    gate_w = rng.randn(S, dim, E).astype(np.float32)
+    expert_W = rng.randn(S, E, dim, dim).astype(np.float32) * 0.2
+    x = rng.randn(microbatches, axes["dp"] * tokens,
+                  dim).astype(np.float32)
+    return Ws, gate_w, expert_W, x
+
+
+def make_pipeline_moe_step(mesh) -> Callable:
+    """The pipeline-MoE dry run's step on a ``{pp, ep, dp}`` mesh:
+    ``step(Ws, gate_w, expert_W, x)`` on whole tensors gives ``(loss,
+    (dWs, dgate_w, dexpert_W))``, the loss averaged over ep and dp and
+    the gradients over dp, whole on every rank.  Each pipeline stage is
+    a tanh dense layer, then a Switch-MoE (all-to-all over ep, capacity
+    factor 4) added as a residual; microbatches stream GPipe-style over
+    pp."""
+    from .parallel.collectives import allreduce_mean, shard_map
+    from .parallel.moe import moe_ffn
+    from .parallel.pipeline import pipeline_apply
+
+    def expert_fn(W, h):
+        return torch.tanh(h @ W[0])
+
+    def stage(params, h):
+        W, gw, eW = params
+        h = torch.tanh(h @ W[0])
+        y, _aux = moe_ffn(h, gw[0], expert_fn, eW[0], axis_name="ep",
+                          capacity_factor=4.0)
+        return h + y
+
+    def grads_fn(Ws, gate_w, expert_W, xm):
+        params = tuple(t.detach().requires_grad_()
+                       for t in (Ws, gate_w, expert_W))
+        out = pipeline_apply(stage, params, xm, axis_name="pp",
+                             vary_axes=("ep", "dp"))
+        loss = torch.mean(out ** 2)
+        grads = torch.autograd.grad(loss, params)
+        # Gradient data parallelism over dp.
+        grads = tuple(allreduce_mean(g, "dp") for g in grads)
+        return allreduce_mean(loss.detach(), ("ep", "dp")), grads
+
+    return shard_map(
+        grads_fn, mesh,
+        in_specs=(P("pp"), P("pp"), P("pp", "ep"), P(None, "dp")),
+        out_specs=(P(), (P("pp"), P("pp"), P("pp", "ep"))))
+
+
+def run_pipeline_moe_dry_run(n_devices: int, microbatches: int = 4,
+                             tokens: int = 8, dim: int = 16, *,
+                             device_type: Optional[str] = None):
+    """One differentiable pipeline-parallel + expert-parallel training
+    step on a {pp, ep, dp} mesh (:func:`make_pipeline_moe_step` on
+    :func:`pipeline_moe_inputs`); every rank of the world calls it.
+    Returns ``(loss, mesh)``."""
+    from .parallel.mesh import build_mesh
+
+    axes = factor_mesh_axes(n_devices, names=("pp", "ep", "dp"))
+    mesh = build_mesh(axes, device_type=device_type)
+    args = [torch.from_numpy(a).to(mesh.device_type)
+            for a in pipeline_moe_inputs(axes, microbatches, tokens, dim)]
+    loss, _grads = make_pipeline_moe_step(mesh)(*args)
+    return float(loss), mesh
+
+
+def run_ring_attention_dry_run(n_devices: int, seq_per_dev: int = 8,
+                               heads: int = 4, dim: int = 8, *,
+                               device_type: Optional[str] = None):
+    """Ring attention over an sp-axis mesh: one causal forward+backward
+    (the gradient of the mean square output with respect to q) on a
+    sequence sharded across every rank; fails on a NaN gradient.
+    Returns the mesh."""
+    import numpy as np
+    from .parallel.attention import ring_attention
+    from .parallel.collectives import shard_map
+    from .parallel.mesh import build_mesh
+
+    mesh = build_mesh({"sp": n_devices}, device_type=device_type)
+    rng = np.random.RandomState(0)
+    S = n_devices * seq_per_dev
+    q, k, v = (torch.from_numpy(rng.randn(1, S, heads, dim).astype(
+        np.float32)).to(mesh.device_type) for _ in range(3))
+
+    def grad_q(q, k, v):
+        q = q.detach().requires_grad_()
+        loss = torch.mean(
+            ring_attention(q, k, v, axis_name="sp", causal=True) ** 2)
+        return torch.autograd.grad(loss, q)[0]
+
+    g = shard_map(grad_q, mesh, in_specs=(P(None, "sp"),) * 3,
+                  out_specs=P(None, "sp"))(q, k, v)
+    assert not torch.isnan(g).any(), \
+        "ring attention produced NaN gradients"
+    return mesh

@@ -573,3 +573,94 @@ def test_bert_base_flash_forward_matches_einsum(cuda):
     torch.cuda.synchronize()
     assert fa.launches == cfg.num_layers
     assert (got - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_resnet18_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    # cuDNN against the CPU's convolutions, TF32 off; relative to the
+    # largest logit (bf16: rounding of the two convolution orders).
+    from horovod_tpu_torch.models import resnet
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = resnet.ResNet18(num_classes=10, dtype=dtype, device="cpu", seed=4)
+    card = resnet.ResNet18(num_classes=10, dtype=dtype, seed=4)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(8, 3, 64, 64, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = cpu(x, train=True)
+        got = card(x.to(cuda), train=True).cpu()
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+    for (name, a), b in zip(card.state_dict().items(),
+                            cpu.state_dict().values()):
+        torch.testing.assert_close(a.cpu(), b, rtol=tol, atol=tol, msg=name)
+
+
+def test_sync_batch_norm_at_size_one_on_cuda_tensors(cuda):
+    # At size 1 the module is torch's BatchNorm; the sync function itself
+    # reduces its float64 moments through the runtime on the card.
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.common.basics import global_process_set
+    from horovod_tpu_torch.torch.sync_batch_norm import _SyncBatchNormFn
+    hvd.init()
+    try:
+        g = torch.Generator(cuda).manual_seed(3)
+        x = torch.randn(8, 4, 6, 6, device=cuda, generator=g) * 2 + 1
+        dy = torch.randn(8, 4, 6, 6, device=cuda, generator=g)
+        sync, ref = hvd.SyncBatchNorm(4).to(cuda), \
+            torch.nn.BatchNorm2d(4).to(cuda)
+        outs = []
+        for bn in (sync, ref):
+            xi = x.clone().requires_grad_()
+            y = bn(xi)
+            y.backward(dy)
+            outs.append((y, xi.grad, bn.weight.grad, bn.running_var))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        xi = x.clone().requires_grad_()
+        w = torch.linspace(0.5, 1.5, 4, device=cuda).requires_grad_()
+        b = torch.zeros(4, device=cuda).requires_grad_()
+        y, _, _ = _SyncBatchNormFn.apply(xi, w, b, 1e-5, global_process_set,
+                                         9999)
+        y.backward(dy)
+        xr = x.clone().requires_grad_()
+        wr, br = w.detach().clone().requires_grad_(), \
+            b.detach().clone().requires_grad_()
+        yr = torch.nn.functional.batch_norm(xr, None, None, wr, br,
+                                            training=True, eps=1e-5)
+        yr.backward(dy)
+        assert y.is_cuda and xi.grad.is_cuda
+        torch.testing.assert_close(y, yr, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(xi.grad, xr.grad, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(w.grad, wr.grad, rtol=1e-4, atol=1e-4)
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_on_a_one_rank_mesh_is_reference(cuda, causal):
+    import socket
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.parallel import (build_mesh, reference_attention,
+                                            ring_attention, shard_map)
+    from horovod_tpu_torch.parallel.mesh import P
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("cpu:gloo,cuda:gloo",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        g = torch.Generator(cuda).manual_seed(5)
+        q, k, v = (torch.randn(2, 256, 4, 64, device=cuda, generator=g)
+                   for _ in range(3))
+        got = shard_map(lambda a, b, c: ring_attention(
+            a, b, c, axis_name="sp", causal=causal), build_mesh({"sp": 1}),
+            P(None, "sp"), P(None, "sp"))(q, k, v)
+        want = reference_attention(q, k, v, causal=causal)
+        assert got.is_cuda
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    finally:
+        dist.destroy_process_group()

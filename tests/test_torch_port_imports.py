@@ -55,6 +55,12 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import horovod_tpu_torch.models.bert\n"
         "import horovod_tpu_torch.parallel.sharding\n"
         "import horovod_tpu_torch.parallel.collectives\n"
+        "import horovod_tpu_torch.parallel.attention\n"
+        "import horovod_tpu_torch.parallel.moe\n"
+        "import horovod_tpu_torch.parallel.pipeline\n"
+        "import horovod_tpu_torch.models.resnet\n"
+        "import horovod_tpu_torch.models.mnist\n"
+        "import horovod_tpu_torch.torch.sync_batch_norm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
@@ -108,6 +114,41 @@ def test_root_exports_the_jax_root_names():
         assert getattr(horovod_tpu_torch, name) is not None, name
     assert issubclass(horovod_tpu_torch.HostsUpdatedInterrupt, Exception)
     assert horovod_tpu_torch.tune_status() is None      # not initialized
+
+
+def test_torch_binding_exports_the_jax_binding_names():
+    import horovod_tpu.torch
+    import horovod_tpu_torch.torch
+    assert horovod_tpu_torch.torch.__all__ == horovod_tpu.torch.__all__
+    for name in horovod_tpu_torch.torch.__all__:
+        assert getattr(horovod_tpu_torch.torch, name) is not None, name
+
+
+# The JAX package's DLRM names, whose port waits for ``sparse/``
+# (ROADMAP.md Queue 1, item 16).
+DLRM_NAMES = {"DLRMConfig", "DLRMDense", "bce_logits_loss",
+              "dlrm_tiny_config", "synthetic_click_batch"}
+CONVERTERS = {"convert_flax_bert_params", "convert_flax_gpt_params",
+              "convert_flax_resnet_params", "convert_flax_mnist_params"}
+
+
+def test_models_export_the_jax_names_less_dlrm_plus_converters():
+    import horovod_tpu.models
+    import horovod_tpu_torch.models
+    assert DLRM_NAMES <= set(horovod_tpu.models.__all__)
+    assert set(horovod_tpu_torch.models.__all__) == \
+        (set(horovod_tpu.models.__all__) - DLRM_NAMES) | CONVERTERS
+    for name in horovod_tpu_torch.models.__all__:
+        assert getattr(horovod_tpu_torch.models, name) is not None, name
+
+
+def test_parallel_exports_the_jax_names():
+    import horovod_tpu.parallel
+    import horovod_tpu_torch.parallel
+    assert horovod_tpu_torch.parallel.__all__ == \
+        horovod_tpu.parallel.__all__
+    for name in horovod_tpu_torch.parallel.__all__:
+        assert getattr(horovod_tpu_torch.parallel, name) is not None, name
 
 
 def test_tune_and_checkpoint_export_the_jax_names():
