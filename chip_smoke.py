@@ -9,9 +9,10 @@ coordinator in turns, trains it elastically at 2, 3 and 2 ranks,
 tunes it, preempts it and resumes it at two ranks, trains it and
 BERT-base sharded over four ranks (fsdp x tp and dp x tp DTensor steps),
 runs the reference's ResNet-50 synthetic benchmark in a world of one and
-at two ranks, and runs ring and Ulysses attention at GPT-2 small's
+at two ranks, runs ring and Ulysses attention at GPT-2 small's
 attention widths and the pipeline x expert-parallel step over four
-ranks.
+ranks, and trains DLRM-tiny at two ranks while a replica on the card
+serves its durable commits over HTTP.
 
     python3 chip_smoke.py
 
@@ -70,6 +71,18 @@ context_parallel phase launches ``chip_smoke.py --cp-worker`` with ``-np
 ``[1, 2048, 12, 64]`` per rank, against ``reference_attention`` on the
 whole 8192 tokens, then ``training``'s ring-attention and pipeline-MoE
 dry runs at full width.
+
+The dlrm_serve phase launches ``chip_smoke.py --dlrm-worker`` with ``-np
+2 -H localhost:2``: DLRM-tiny (two 65536 x 16 tables, mean bags) for 24
+steps of 32 examples per rank, the tables row-sharded on the card and
+exchanged by alltoall, the dense gradients averaged by ``hvd.allreduce``,
+a durable commit every 5 steps (a base, then deltas) through
+``KVCommitCoordinator`` on the launcher's KV.  Meanwhile this process
+serves the commits (``horovod_tpu_torch.serve.start``, tables on the
+card, HTTP under a job secret) at 50 queries/s of Zipf lookups and bags.
+Each rank's losses and final parameters and shards must equal a
+one-process oracle's exactly, every answer the committed rows at its
+stamped step, and the replica must end on the last commit.
 """
 
 import ast
@@ -2853,6 +2866,409 @@ def phase_context_parallel() -> dict:
     return {"flash": 0, "fusion": 0}
 
 
+# ---------------------------------------------------------------------------
+# dlrm_serve: DLRM-tiny trained at two ranks while a replica serves its
+# commits
+# ---------------------------------------------------------------------------
+
+DLRM_SEED = 11            # the dense weights (both ranks and the oracle)
+DLRM_BATCH = 32           # examples per rank and step (bench.py's lanes)
+DLRM_STEPS = 24
+DLRM_CKPT_EVERY = 5       # a durable commit every 5 steps: base, deltas
+DLRM_LR = 0.05            # SGD on the dense part and the tables
+DLRM_QPS = 50.0           # HOROVOD_BENCH_SERVE_QPS's default (bench.py)
+DLRM_QUERY_IDS = 16       # Zipf ids per query, as bench.py's serve lane
+DLRM_TIMEOUT_S = 600
+
+
+def dlrm_setup(rank: int, size: int):
+    """DLRM-tiny at its published config: the dense part (on the card,
+    the same weights from ``DLRM_SEED`` on every rank) and its two
+    65536 x 16 tables, row-sharded over ``size`` ranks on the card, each
+    pooled by a mean bag."""
+    from horovod_tpu_torch.models import dlrm
+    from horovod_tpu_torch.sparse import EmbeddingBag, ShardedEmbedding
+    cfg = dlrm.dlrm_tiny_config()
+    model = dlrm.DLRMDense(cfg, seed=DLRM_SEED)
+    tables = [ShardedEmbedding("dlrm.t%d" % i, rows, cfg.embed_dim,
+                               rank=rank, size=size, seed=7 + i)
+              for i, rows in enumerate(cfg.table_rows)]
+    return cfg, model, tables, [EmbeddingBag(t, mode="mean")
+                                for t in tables]
+
+
+def dlrm_forward(cfg, model, bags, rank: int, step: int):
+    """Rank ``rank``'s batch of ``step`` (bench.py's seeding): pooled
+    embeddings, loss, and the gradients of the dense parameters (one flat
+    fp32 tensor) and of the pooled embeddings."""
+    import numpy as np
+    from horovod_tpu_torch.models import dlrm
+    dense, ids, offsets, labels = dlrm.synthetic_click_batch(
+        np.random.default_rng([rank, step]), DLRM_BATCH, cfg)
+    emb = torch.cat([bag.forward(ids[i], offsets)
+                     for i, bag in enumerate(bags)], dim=1)
+    emb.requires_grad_()
+    model.zero_grad()
+    loss = dlrm.bce_logits_loss(
+        model(torch.from_numpy(dense).cuda(), emb),
+        torch.from_numpy(labels).cuda())
+    loss.backward()
+    flat = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    return loss.detach(), flat, emb.grad, (ids, offsets)
+
+
+def dlrm_dense_update(model, flat_grad):
+    with torch.no_grad():
+        for p, g in zip(model.parameters(), flat_grad.split(
+                [p.numel() for p in model.parameters()])):
+            p -= DLRM_LR * g.view_as(p)
+
+
+def dlrm_sparse_update(cfg, bags, emb_grad):
+    """SGD on the tables through the bags' backward (the gradient
+    exchange of their last lookups)."""
+    for i, bag in enumerate(bags):
+        bag.backward(emb_grad[:, i * cfg.embed_dim:(i + 1) * cfg.embed_dim],
+                     lr=DLRM_LR)
+
+
+def sparse_bytes() -> dict:
+    from horovod_tpu_torch.common import metrics
+    c = metrics.snapshot()["counters"].get(
+        "hvd_sparse_alltoall_bytes_total", {})
+    return {s: c.get("stage=" + s, 0.0) for s in ("ids", "rows", "grads")}
+
+
+def dlrm_worker():
+    """One rank of the dlrm_serve phase (``--dlrm-worker``), started by
+    the launcher: ``DLRM_STEPS`` steps of DLRM-tiny, the dense gradients
+    averaged by ``hvd.allreduce(..., op=Average, name="dlrm.densegrad")``
+    (packed by the fusion kernel), the tables updated through the
+    alltoall exchange; every ``DLRM_CKPT_EVERY`` steps a durable commit
+    (a base, then touched-row deltas) through ``CheckpointManager`` and
+    ``KVCommitCoordinator`` on the launcher's KV.  Saves its final
+    parameters, shards and losses to ``DLRM_OUT/rank<r>.pt`` and prints
+    one RESULT line."""
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+    from horovod_tpu_torch.runner.elastic.worker import \
+        kv_commit_coordinator
+    hvd.init()
+    rank, size = hvd.rank(), hvd.size()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, tables, bags = dlrm_setup(rank, size)
+    coord = kv_commit_coordinator()
+    mgr = CheckpointManager(os.environ["DLRM_CKPT_DIR"], rank=rank,
+                            world_size=size, coordinator=coord, keep=None)
+    fb.launches.update({k: 0 for k in fb.launches})
+    fb.plain_calls.update({k: 0 for k in fb.plain_calls})
+    bytes0 = sparse_bytes()
+    losses, step_ms, save_ms, commits = [], [], [], []
+    for step in range(1, DLRM_STEPS + 1):
+        t0 = time.perf_counter()
+        loss, flat, emb_grad, _ = dlrm_forward(cfg, model, bags, rank, step)
+        dlrm_dense_update(model, hvd.allreduce(flat, op=hvd.Average,
+                                               name="dlrm.densegrad"))
+        dlrm_sparse_update(cfg, bags, emb_grad)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if step % DLRM_CKPT_EVERY:
+            continue
+        plan = mgr.delta_plan()
+        local, snaps = {}, []
+        for t in tables:
+            snaps.append(t.snapshot_touched())
+            local.update(t.durable_items(full=plan is None))
+        dense = {"dense/" + k: v.cpu().numpy()
+                 for k, v in model.state_dict().items()}
+        t0 = time.perf_counter()
+        mgr.save(step, dense, local_items=local, delta_of=plan)
+        deadline = time.monotonic() + 120
+        while (coord.committed_step() or -1) < step:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"step {step}: commit not visible")
+            time.sleep(0.01)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        for t, snap in zip(tables, snaps):
+            t.clear_touched(None if plan is None else snap)
+        commits.append({"step": step, "t": time.time(),
+                        "kind": "base" if plan is None else "delta"})
+    mgr.close()
+    moved = sparse_bytes()
+    fusion, plain = dict(fb.launches), dict(fb.plain_calls)
+    torch.save({"losses": losses,
+                "dense": {k: v.cpu() for k, v in model.state_dict().items()},
+                "tables": {t.name: t.local.cpu() for t in tables}},
+               os.path.join(os.environ["DLRM_OUT"], f"rank{rank}.pt"))
+    out = {"rank": rank, "backend": basics._state().backend.name,
+           "server": server_of_rank0(), "losses": losses,
+           "step_ms": step_ms, "median_step_ms": statistics.median(step_ms),
+           "steps_per_s": 1e3 / statistics.median(step_ms),
+           "alltoall_bytes_per_step": {
+               s: (moved[s] - bytes0[s]) / DLRM_STEPS for s in moved},
+           "save_ms": save_ms, "commits": commits,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "fusion": fusion, "fusion_plain_calls": plain}
+    hvd.shutdown()
+    print("RESULT " + json.dumps(out), flush=True)
+
+
+def dlrm_oracle(fault: bool = False) -> dict:
+    """The two-rank run in one process on this card: each rank's half
+    computed on its own, the dense gradients averaged as the allreduce
+    averages them (the sum of the two, times 0.5), the tables (unsharded)
+    updated by rank 0's, then rank 1's gradients, the owners' order.
+    With ``fault``, rank 1's dense gradient is dropped (a half-batch
+    step): what the gate must tell apart."""
+    cfg, model, tables, bags = dlrm_setup(0, 1)
+    losses = {0: [], 1: []}
+    for step in range(1, DLRM_STEPS + 1):
+        halves = [dlrm_forward(cfg, model, bags, r, step) for r in (0, 1)]
+        for r, (loss, *_) in enumerate(halves):
+            losses[r].append(loss.item())
+        dlrm_dense_update(model, halves[0][1] if fault else
+                          (halves[0][1] + halves[1][1]) * 0.5)
+        for _, _, emb_grad, (ids, offsets) in halves:
+            for i, bag in enumerate(bags):
+                bag.forward(ids[i], offsets)     # the backward's routing
+            dlrm_sparse_update(cfg, bags, emb_grad)
+    return {"losses": losses,
+            "dense": {k: v.cpu() for k, v in model.state_dict().items()},
+            "tables": {t.name: t.local.cpu() for t in tables}}
+
+
+def max_abs_gap(got: dict, want: dict) -> float:
+    return max((got[k].float() - want[k].float()).abs().max().item()
+               for k in want)
+
+
+def signed_post(url: str, path: str, payload: dict, secret: str):
+    body = json.dumps(payload).encode()
+    ts = repr(time.time())
+    req = urllib.request.Request(url + path, data=body, headers={
+        job_secret.TS_HEADER: ts,
+        job_secret.HEADER: job_secret.sign(secret, "POST", path, body, ts)})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read().decode())
+
+
+def serve_queries(plane, proc, secret: str) -> list:
+    """Zipf lookup and mean-bag queries at ``DLRM_QPS`` over the plane's
+    signed HTTP endpoint, alternating ops and tables, until the trainer
+    (``proc``) exits.  Returns one record per answered query."""
+    import numpy as np
+    from horovod_tpu_torch.common import metrics
+    url = f"http://127.0.0.1:{plane.port}"
+    rng = np.random.default_rng(17)
+    records = []
+    period = 1.0 / DLRM_QPS
+    begin = time.perf_counter()
+    while proc.poll() is None:
+        now = time.perf_counter()
+        due = begin + len(records) * period
+        if now < due:
+            time.sleep(due - now)
+        n = len(records)
+        table = "dlrm.t%d" % (n // 2 % 2)
+        ids = ((rng.zipf(1.3, size=DLRM_QUERY_IDS) - 1) % 65536).tolist()
+        query = {"table": table, "ids": ids}
+        if n % 2:
+            query.update(offsets=list(range(0, DLRM_QUERY_IDS, 2)),
+                         mode="mean")
+        t0 = time.perf_counter()
+        got = signed_post(url, "/lookup", query, secret)
+        ms = (time.perf_counter() - t0) * 1e3
+        # Behind by steps (the newest commit the tail has seen less the
+        # served one) and by seconds (since the tail first saw it behind).
+        served, latest = plane.replica.freshness()
+        lag_s = metrics.snapshot()["gauges"].get(
+            "hvd_serve_freshness_seconds")
+        records.append({"op": "bag" if n % 2 else "lookup", "ms": ms,
+                        "t": time.perf_counter() - begin, "query": query,
+                        "step": got["step"], "rows": got["rows"],
+                        "lag_steps": max((latest or served) - served, 0),
+                        "lag_s": float(lag_s or 0.0)})
+    return records
+
+
+def served_mismatches(cdir: str, records: list) -> int:
+    """How many answers differ from the committed rows at their stamped
+    step, read back from the checkpoint directory (a bag pooled as
+    ``np.add.at`` pools, in float32)."""
+    import numpy as np
+    from horovod_tpu_torch.checkpoint import CheckpointManager, assemble_table
+    ro = CheckpointManager(cdir, rank=0, world_size=1, keep=None)
+    tables, bad = {}, 0
+    for rec in records:
+        q = rec["query"]
+        key = (rec["step"], q["table"])
+        if key not in tables:
+            tables[key] = assemble_table(ro.restore(rec["step"]),
+                                         "sparse/%s/rows" % q["table"])
+        rows = tables[key][np.asarray(q["ids"])]
+        if "offsets" in q:
+            offsets = np.asarray(q["offsets"])
+            sizes = np.diff(np.concatenate([offsets, [len(q["ids"])]]))
+            pooled = np.zeros((len(offsets), rows.shape[1]), np.float32)
+            np.add.at(pooled, np.repeat(np.arange(len(offsets)), sizes),
+                      rows)
+            pooled /= np.maximum(sizes, 1)[:, None]
+            rows = pooled
+        bad += not np.array_equal(np.asarray(rec["rows"], np.float32), rows)
+    ro.close()
+    return bad
+
+
+def percentiles(xs) -> dict:
+    import numpy as np
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99))} if xs else None
+
+
+def phase_dlrm_serve() -> dict:
+    """DLRM-tiny (two 65536 x 16 tables, published widths, nothing cut)
+    trained at two ranks on this card, launched by the port's launcher
+    (``-np 2 -H localhost:2`` of ``--dlrm-worker``, gloo, native
+    coordinator) with a durable commit every ``DLRM_CKPT_EVERY`` steps,
+    while this process serves the commits: ``serve.start`` on the card
+    (tail thread, HTTP under a job secret) answering Zipf lookup and bag
+    queries at ``DLRM_QPS``.  Gates: each rank's losses and its final
+    dense parameters and table shards equal :func:`dlrm_oracle`'s
+    exactly; every answer equals the committed rows at its stamped step;
+    the replica ends on the last commit after one bootstrap and one delta
+    flip per later commit."""
+    from horovod_tpu_torch import serve
+    from horovod_tpu_torch.checkpoint import CheckpointNotFoundError
+    from horovod_tpu_torch.common import metrics
+    t0 = time.perf_counter()
+    oracle = dlrm_oracle()
+    fault = dlrm_oracle(fault=True)
+    fault_gap = max_abs_gap(fault["dense"], oracle["dense"])
+    secret = job_secret.make_secret_key()
+    poll0 = os.environ.get("HOROVOD_SERVE_POLL_SECONDS")
+    # Tail often: the phase measures freshness, not the poll period.
+    os.environ["HOROVOD_SERVE_POLL_SECONDS"] = "0.05"
+    flips = metrics.REGISTRY.counter("hvd_serve_snapshot_flips_total")
+    flips0 = {k: flips.value(kind=k) for k in ("bootstrap", "delta",
+                                               "rebase")}
+    plane = None
+    with tempfile.TemporaryDirectory() as d:
+        cdir = os.path.join(d, "ckpt")
+        env = dict(os.environ, PYTHONPATH=REPO, HOROVOD_TPU_NATIVE="1",
+                   DLRM_CKPT_DIR=cdir, DLRM_OUT=d)
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+               "-np", "2", "-H", "localhost:2", sys.executable,
+               os.path.abspath(__file__), "--dlrm-worker"]
+        proc, lines, reader = start_launcher(cmd, env)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            allocated0 = torch.cuda.memory_allocated()
+            deadline = time.monotonic() + DLRM_TIMEOUT_S
+            while plane is None:
+                try:
+                    plane = serve.start(cdir, secret=secret)
+                except CheckpointNotFoundError:
+                    if proc.poll() is not None or \
+                            time.monotonic() > deadline:
+                        reader.join(timeout=30)
+                        print("".join(lines)[-20000:], flush=True)
+                        raise
+                    time.sleep(0.05)
+            bootstrap_step = plane.replica.freshness()[0]
+            t_serve = time.perf_counter()
+            records = serve_queries(plane, proc, secret)
+            serve_s = time.perf_counter() - t_serve
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            reader.join(timeout=30)
+            out = "".join(lines)
+            results = result_lines(out)
+            if proc.returncode != 0 or sorted(results) != [0, 1]:
+                print(out[-20000:], flush=True)
+                raise RuntimeError(f"dlrm_serve: the launcher exited "
+                                   f"{proc.returncode} with RESULT lines "
+                                   f"of ranks {sorted(results)}")
+            results = [results[r] for r in (0, 1)]
+            last = results[0]["commits"][-1]["step"]
+            end = time.monotonic() + 30
+            while plane.replica.freshness()[0] < last and \
+                    time.monotonic() < end:
+                time.sleep(0.01)
+            final_step = plane.replica.freshness()[0]
+            replica_memory = torch.cuda.max_memory_allocated() - allocated0
+        finally:
+            if plane is not None:
+                plane.stop()
+            if proc.poll() is None:
+                kill_tree(proc.pid)
+                proc.wait()
+            if poll0 is None:
+                os.environ.pop("HOROVOD_SERVE_POLL_SECONDS", None)
+            else:
+                os.environ["HOROVOD_SERVE_POLL_SECONDS"] = poll0
+        mismatches = served_mismatches(cdir, records)
+        nbytes = {c["step"]: sum(int(e["nbytes"]) for e in read_manifest(
+            step_dir(cdir, c["step"])).shards) for c in results[0]["commits"]}
+        final = [torch.load(os.path.join(d, f"rank{r}.pt")) for r in (0, 1)]
+    flipped = {k: flips.value(kind=k) - flips0[k] for k in flips0}
+    commits = results[0]["commits"]
+    later = [c for c in commits if c["step"] > bootstrap_step]
+    gaps = {r: {"losses": max(abs(a - b) for a, b in zip(
+        final[r]["losses"], oracle["losses"][r])),
+        "dense": max_abs_gap(final[r]["dense"], oracle["dense"]),
+        "tables": max((final[r]["tables"][n] - oracle["tables"][n][r::2])
+                      .abs().max().item() for n in oracle["tables"])}
+        for r in (0, 1)}
+    emit("dlrm_serve", model="DLRM-tiny: 2 tables of 65536 x 16 fp32, "
+         "2 ids per table, mean bags, bottom (32, 16), top (32, 16, 1)",
+         ranks=2, backend=results[0]["backend"],
+         server=results[0]["server"], batch_per_rank=DLRM_BATCH,
+         steps=DLRM_STEPS, lr=DLRM_LR,
+         median_step_ms=[r["median_step_ms"] for r in results],
+         steps_per_s=[r["steps_per_s"] for r in results],
+         alltoall_bytes_per_step=[r["alltoall_bytes_per_step"]
+                                  for r in results],
+         save_ms={r["rank"]: r["save_ms"] for r in results},
+         commits=[{"step": c["step"], "kind": c["kind"],
+                   "bytes": nbytes[c["step"]]} for c in commits],
+         queries=len(records), target_qps=DLRM_QPS,
+         achieved_qps=len(records) / serve_s if serve_s else 0.0,
+         read_ms={op: percentiles([q["ms"] for q in records
+                                   if q["op"] == op])
+                  for op in ("lookup", "bag")},
+         freshness_steps=percentiles([q["lag_steps"] for q in records]),
+         freshness_seconds=percentiles([q["lag_s"] for q in records]),
+         served_steps=sorted({q["step"] for q in records}),
+         served_mismatches=mismatches, bootstrap_step=bootstrap_step,
+         final_step=final_step, flips=flipped,
+         max_memory_allocated=[r["max_memory_allocated"] for r in results],
+         replica_max_memory_allocated=replica_memory,
+         fusion_launches={r["rank"]: r["fusion"] for r in results},
+         losses={r["rank"]: r["losses"] for r in results},
+         oracle_gaps=gaps, half_batch_fault_gap=fault_gap,
+         seconds=time.perf_counter() - t0)
+    for r in results:
+        assert r["backend"] == "gloo", r["backend"]
+        assert r["server"] == "NativeCoordinatorServer", r["server"]
+        assert r["fusion"]["pack"] > 0 and r["fusion"]["unpack"] > 0, r
+        assert r["fusion_plain_calls"] == {"pack": 0, "unpack": 0}, r
+        assert all(math.isfinite(x) for x in r["losses"]), r["losses"]
+    # Gate 1: the two-rank run is the oracle's, bit for bit; the fault
+    # shows what the gate would see.
+    assert all(v == 0.0 for g in gaps.values() for v in g.values()), gaps
+    assert fault_gap > 0.0, fault_gap
+    # Gate 2: every answer is the committed value at its stamped step.
+    assert records and mismatches == 0, (mismatches, len(records))
+    # Gate 3: no torn or skipped flip; the replica ends on the last commit.
+    assert final_step == last, (final_step, last)
+    assert flipped == {"bootstrap": 1, "delta": len(later), "rebase": 0}, \
+        (flipped, bootstrap_step, commits)
+    assert [c["kind"] for c in commits] == \
+        ["base"] + ["delta"] * (len(commits) - 1), commits
+    return {"flash": 0, "fusion": sum(r["fusion"]["pack"] +
+                                      r["fusion"]["unpack"]
+                                      for r in results)}
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -2875,6 +3291,9 @@ def main():
     if sys.argv[1:] == ["--cp-worker"]:
         cp_worker()
         return
+    if sys.argv[1:] == ["--dlrm-worker"]:
+        dlrm_worker()
+        return
     CARD = card()
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -2893,8 +3312,9 @@ def main():
     sharded = phase_sharded_train()
     resnet50 = phase_resnet50()
     context_parallel = phase_context_parallel()
+    dlrm_serve = phase_dlrm_serve()
     paths = (launches, coordinator, elastic, durable, sharded, resnet50,
-             context_parallel)
+             context_parallel, dlrm_serve)
     flash_row["launches"] = sum(p["flash"] for p in paths)
     fusion_row["launches"] = sum(p["fusion"] for p in paths)
     emit("script", seconds=time.perf_counter() - t0)

@@ -13,8 +13,7 @@ A world of one process needs no launcher; a larger one is started by
 (``runner/``), as ``horovodrun`` starts a Horovod job (see ROADMAP.md
 for what is ported).
 
-The root names are those of :mod:`horovod_tpu` less its subpackages
-that are not ported yet (``serve``, ``sparse``).  They load on first
+The root names are those of :mod:`horovod_tpu`.  They load on first
 use (a module ``__getattr__``), so that the launcher, which needs only
 the standard library, starts without importing torch.
 """
@@ -48,7 +47,7 @@ _HOME = {**{n: ".common.basics" for n in _BASICS},
 
 
 # Subpackages exported by name, imported on first use.
-_SUBPACKAGES = ("parallel",)
+_SUBPACKAGES = ("parallel", "serve", "sparse")
 
 
 def __getattr__(name):
@@ -92,5 +91,5 @@ __all__ = [
     # exceptions
     "HorovodInternalError", "HostsUpdatedInterrupt",
     # subpackages
-    "parallel",
+    "parallel", "serve", "sparse",
 ]

@@ -8,6 +8,9 @@ from .gpt import (GPTConfig, GPTLMHeadModel, convert_flax_gpt_params,
                   lm_loss)
 from .mnist import (MnistCNN, MnistMLP, convert_flax_mnist_params,
                     cross_entropy_loss)
+from .dlrm import (DLRMConfig, DLRMDense, bce_logits_loss,
+                   convert_flax_dlrm_params, dlrm_tiny_config,
+                   synthetic_click_batch)
 
 __all__ = [
     "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
@@ -20,4 +23,6 @@ __all__ = [
     "lm_loss",
     "MnistCNN", "MnistMLP", "convert_flax_mnist_params",
     "cross_entropy_loss",
+    "DLRMConfig", "DLRMDense", "bce_logits_loss", "dlrm_tiny_config",
+    "synthetic_click_batch", "convert_flax_dlrm_params",
 ]

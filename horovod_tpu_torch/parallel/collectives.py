@@ -11,7 +11,13 @@ scatters, all-to-alls and permutations), and they wait for their result.
 
 Two things have no counterpart: JAX's varying-axis typing (``pvary``;
 PyTorch tracks no replication, so ``shard_map`` checks none) and a
-compiled program (each call runs eagerly).
+compiled program (each call runs eagerly).  Without the typing,
+``shard_map`` differentiates as JAX's unchecked transpose does (its
+``check_vma=False`` rule, where a sum's transpose is a sum): it sums an
+input's cotangent over the mesh axes its spec leaves unnamed and divides
+an output's by the size of those axes, which gives the gradients
+``jax.grad`` of the checked ``shard_map`` gives where the replication
+holds.
 
 :class:`count_collectives` counts the bytes of every collective the
 process issues, by kind, including those DTensor inserts.
@@ -22,6 +28,7 @@ calls, reads a CUDA pointer as host memory.
 """
 
 import contextvars
+import math
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -147,6 +154,45 @@ class _Assemble(torch.autograd.Function):
                 None, None)
 
 
+class _SumGrad(torch.autograd.Function):
+    """The identity, whose gradient is summed over ``group``: every member
+    holds the same value (an input its spec leaves replicated over the
+    group's axes), so the value's gradient is every member's
+    contribution (the transpose of JAX's implicit ``pvary``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group.pg)
+        return g, None
+
+
+class _ShareGrad(torch.autograd.Function):
+    """The identity, whose gradient is divided by ``copies``: an output
+    its spec leaves replicated over axes of that many ranks is one value,
+    whose cotangent every one of them carries into the backward."""
+
+    @staticmethod
+    def forward(ctx, y, copies):
+        ctx.copies = copies
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.copies, None
+
+
+def _unnamed(spec: PartitionSpec, mesh: DeviceMesh) -> Tuple[str, ...]:
+    """The mesh axes, in mesh order, that no entry of ``spec`` names."""
+    named = {a for entry in spec if entry is not None for a in _axes(entry)}
+    return tuple(n for n in mesh.mesh_dim_names if n not in named)
+
+
 def _local(x: torch.Tensor, spec: PartitionSpec, mesh: DeviceMesh
            ) -> torch.Tensor:
     for d, entry in enumerate(spec):
@@ -157,11 +203,19 @@ def _local(x: torch.Tensor, spec: PartitionSpec, mesh: DeviceMesh
             raise ValueError(f"dim {d} of size {x.shape[d]} does not split "
                              f"over {g.size} ranks of {entry}")
         x = _Cut.apply(x, d, g)
+    unnamed = _unnamed(spec, mesh)
+    if x.requires_grad and unnamed:
+        x = _SumGrad.apply(x, _group(unnamed, mesh))
     return x
 
 
 def _assemble(y: torch.Tensor, spec: PartitionSpec, mesh: DeviceMesh
               ) -> torch.Tensor:
+    unnamed = _unnamed(spec, mesh)
+    if y.requires_grad and unnamed:
+        names = list(mesh.mesh_dim_names)
+        y = _ShareGrad.apply(y, math.prod(mesh.mesh.shape[names.index(a)]
+                                          for a in unnamed))
     for d, entry in enumerate(spec):
         if entry is not None:
             y = _Assemble.apply(y, d, _group(entry, mesh))
@@ -189,7 +243,8 @@ def shard_map(fn: Callable, mesh: DeviceMesh, in_specs, out_specs
     by ``out_specs`` (gathered over every axis that names a dim, taken
     as this rank's value where none does).  Differentiable as one
     global function: every rank holds the same whole inputs and
-    outputs, and a whole input's gradient is whole on every rank."""
+    outputs, and a whole input's gradient is whole on every rank, summed
+    over the axes its spec leaves unnamed."""
     def run(*args):
         specs = in_specs
         if isinstance(specs, PartitionSpec):

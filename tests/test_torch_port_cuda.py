@@ -12,6 +12,7 @@ is installed:
 
 import dataclasses
 import sys
+import time
 
 import pytest
 import torch
@@ -664,3 +665,219 @@ def test_ring_attention_on_a_one_rank_mesh_is_reference(cuda, causal):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The sparse engine and the serving replica on the card: bit for bit the
+# CPU path (the ordered scatter keeps np.add.at's order where index_add_
+# would add by atomics), and whole snapshots under concurrent reads.
+# ---------------------------------------------------------------------------
+def _sparse_run(device, dedupe, monkeypatch):
+    import numpy as np
+
+    from horovod_tpu_torch.sparse import EmbeddingBag, ShardedEmbedding
+    monkeypatch.setenv("HOROVOD_SPARSE_DEDUPE", dedupe)
+    t = ShardedEmbedding("cuda.t", 4096, 16, rank=0, size=1, seed=3,
+                         device=device)
+    bag = EmbeddingBag(ShardedEmbedding("cuda.b", 4096, 16, rank=0, size=1,
+                                        seed=4, device=device), mode="mean")
+    out = []
+    for step in range(4):
+        rng = np.random.default_rng(step)
+        ids = (rng.zipf(1.3, size=512) - 1) % 4096     # many duplicates
+        g = rng.standard_normal((512, 16)).astype(np.float32)
+        out.append(t.lookup(ids).cpu())
+        t.apply_gradients(torch.from_numpy(g).to(device), lr=0.05)
+        offsets = np.arange(0, 512, 2)
+        out.append(bag.forward(ids, offsets).cpu())
+        bag.backward(torch.from_numpy(g[:256]).to(device), lr=0.05)
+    out += [t.local.cpu(), bag.table.local.cpu(),
+            torch.from_numpy(t.snapshot_touched())]
+    return out
+
+
+@pytest.mark.parametrize("dedupe", ["1", "0"])
+def test_sparse_update_and_bag_on_the_card_equal_the_cpu(cuda, dedupe,
+                                                         monkeypatch):
+    got = _sparse_run(cuda, dedupe, monkeypatch)
+    want = _sparse_run("cpu", dedupe, monkeypatch)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+
+
+def test_ordered_scatter_on_the_card_is_the_cpu_order(cuda):
+    from horovod_tpu_torch.sparse.embedding import ordered_scatter
+    g = torch.Generator().manual_seed(0)
+    target = torch.randn(64, 16, generator=g)
+    index = torch.randint(0, 64, (20000,), generator=g)
+    values = torch.randn(20000, 16, generator=g) * 1e3
+    for op in ("add", "sub"):
+        want = ordered_scatter(target.clone(), index, values, op)
+        got = ordered_scatter(target.to(cuda), index.to(cuda),
+                              values.to(cuda), op)
+        assert torch.equal(got.cpu(), want), op
+
+
+_SERVE_ROWS, _SERVE_DIM, _SERVE_TOUCH = 65536, 16, 4096
+
+
+def _serve_touched(step):
+    import numpy as np
+    return np.unique((np.arange(_SERVE_TOUCH) * 131 + step * 997)
+                     % _SERVE_ROWS)
+
+
+def _serve_table_at(step):
+    import numpy as np
+    t = np.arange(_SERVE_ROWS * _SERVE_DIM, dtype=np.float32).reshape(
+        _SERVE_ROWS, _SERVE_DIM) * 1e-3
+    for s in range(2, step + 1):
+        r = _serve_touched(s)
+        t[r] = r.astype(np.float32)[:, None] + s * 1000.0
+    return t
+
+
+def _serve_commit(mgr, step):
+    import numpy as np
+
+    from horovod_tpu_torch.checkpoint import RowDelta
+    name = "sparse/tbl/rows.r00000"
+    plan = mgr.delta_plan()
+    if plan is None:            # the first step, or the chain is full
+        mgr.save(step, {}, local_items={name: RowDelta(
+            np.arange(_SERVE_ROWS), _serve_table_at(step), _SERVE_ROWS)})
+    else:
+        r = _serve_touched(step)
+        vals = np.repeat(r.astype(np.float32)[:, None] + step * 1000.0,
+                         _SERVE_DIM, axis=1)
+        mgr.save(step, {}, local_items={name: RowDelta(r, vals,
+                                                       _SERVE_ROWS)},
+                 delta_of=plan)
+
+
+def test_replica_on_the_card_equals_the_replica_on_the_cpu(cuda, tmp_path):
+    import numpy as np
+
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+    from horovod_tpu_torch.serve import ServingReplica
+    mgr = CheckpointManager(str(tmp_path), keep=None)
+    try:
+        for s in (1, 2):
+            _serve_commit(mgr, s)
+        on_card = ServingReplica(str(tmp_path), device=cuda)
+        on_cpu = ServingReplica(str(tmp_path), device="cpu")
+        assert on_card.bootstrap() == on_cpu.bootstrap() == 2
+        for s in (3, 4):
+            _serve_commit(mgr, s)
+        assert on_card.poll_once() == on_cpu.poll_once() == 2
+        rng = np.random.default_rng(1)
+        ids = (rng.zipf(1.3, size=4096) - 1) % _SERVE_ROWS
+        a, b = on_card.lookup("tbl", ids), on_cpu.lookup("tbl", ids)
+        assert a[0].is_cuda and a[1] == b[1] == 4
+        assert torch.equal(a[0].cpu(), b[0])
+        assert torch.equal(b[0], torch.from_numpy(_serve_table_at(4)[ids]))
+        offsets = np.sort(rng.integers(0, 4096, size=300))
+        offsets[0] = 0
+        for mode in ("sum", "mean"):
+            a = on_card.embedding_bag("tbl", ids, offsets, mode=mode)[0]
+            b = on_cpu.embedding_bag("tbl", ids, offsets, mode=mode)[0]
+            assert a.is_cuda and torch.equal(a.cpu(), b), mode
+        with pytest.raises(IndexError):
+            on_card.lookup("tbl", [_SERVE_ROWS])
+    finally:
+        mgr.close()
+
+
+def test_replica_on_the_card_serves_whole_steps_under_concurrent_reads(
+        cuda, tmp_path, monkeypatch):
+    """A writer commits deltas of 4096 rows of a 65536 x 16 table while
+    the tail thread flips snapshots built on the card and four reader
+    threads look rows up: every read equals the committed table at its
+    own step stamp (a flip before its copies finished would show a row
+    of the next step, or of no step).  Then the torn-apply failpoint, on
+    the card."""
+    import threading
+
+    import numpy as np
+
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+    from horovod_tpu_torch.common import env, failpoints
+    from horovod_tpu_torch.serve import ServingReplica
+    monkeypatch.setenv(env.HOROVOD_SERVE_POLL_SECONDS, "0.01")
+    mgr = CheckpointManager(str(tmp_path), keep=None)
+    rep = None
+    try:
+        _serve_commit(mgr, 1)
+        rep = ServingReplica(str(tmp_path), device=cuda)
+        rep.bootstrap()
+        rep.start()
+        tables, bad, reads = {}, [], [0] * 4
+        stop = threading.Event()
+        ids = np.unique(np.concatenate(
+            [_serve_touched(s)[:64] for s in range(2, 12)]))
+
+        def reader(i):
+            while not stop.is_set():
+                rows, step = rep.lookup("tbl", ids)
+                rows = rows.cpu().numpy()
+                want = tables.get(step)
+                if want is None:
+                    want = tables[step] = _serve_table_at(step)[ids]
+                if not np.array_equal(rows, want):
+                    bad.append(step)
+                reads[i] += 1
+
+        threads = [threading.Thread(target=reader, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for s in range(2, 12):
+            _serve_commit(mgr, s)
+        deadline = time.monotonic() + 30
+        while rep.freshness()[0] < 11 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+        assert rep.freshness()[0] == 11
+        assert not bad, bad[:10]
+        assert min(reads) > 0, reads
+        rep.stop()
+        _serve_commit(mgr, 12)
+        failpoints.configure("serve.delta_apply=drop(1)")
+        try:
+            assert rep.poll_once() == 0
+            rows, step = rep.lookup("tbl", np.arange(_SERVE_ROWS))
+            assert step == 11
+            assert torch.equal(rows.cpu(),
+                               torch.from_numpy(_serve_table_at(11)))
+        finally:
+            failpoints.reset()
+        assert rep.poll_once() == 1
+        rows, step = rep.lookup("tbl", np.arange(_SERVE_ROWS))
+        assert step == 12 and torch.equal(
+            rows.cpu(), torch.from_numpy(_serve_table_at(12)))
+    finally:
+        if rep is not None:
+            rep.stop()
+        mgr.close()
+
+
+def test_tables_and_replica_default_to_the_card(cuda, tmp_path):
+    from horovod_tpu_torch import serve
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+    from horovod_tpu_torch.sparse import ShardedEmbedding
+    t = ShardedEmbedding("card", 100, 4, rank=0, size=1)
+    assert t.local.is_cuda
+    mgr = CheckpointManager(str(tmp_path), keep=None)
+    try:
+        _serve_commit(mgr, 1)
+        plane = serve.start(str(tmp_path), http=False, tail=False)
+        try:
+            assert plane.replica.device.type == "cuda"
+            assert plane.replica.lookup("tbl", [0, 1])[0].is_cuda
+        finally:
+            plane.stop()
+    finally:
+        mgr.close()

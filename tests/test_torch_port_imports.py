@@ -61,6 +61,10 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import horovod_tpu_torch.models.resnet\n"
         "import horovod_tpu_torch.models.mnist\n"
         "import horovod_tpu_torch.torch.sync_batch_norm\n"
+        "import horovod_tpu_torch.sparse, horovod_tpu_torch.sparse.embedding\n"
+        "import horovod_tpu_torch.models.dlrm\n"
+        "import horovod_tpu_torch.serve, horovod_tpu_torch.serve.replica\n"
+        "import horovod_tpu_torch.serve.server\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(','.join(bad))\n")
@@ -100,15 +104,11 @@ def test_no_source_imports_jax_or_reference():
     assert offenders == []
 
 
-# Root names of the JAX package whose port is still open (ROADMAP.md
-# Queue 1: items 16 and 17).
-OPEN_ITEMS = {"sparse", "serve"}
-
-
 def test_root_exports_the_jax_root_names():
     import horovod_tpu
     import horovod_tpu_torch
-    want = set(horovod_tpu.__all__) - OPEN_ITEMS
+    want = set(horovod_tpu.__all__)
+    assert {"serve", "sparse"} <= want
     assert set(horovod_tpu_torch.__all__) == want
     for name in sorted(want):
         assert getattr(horovod_tpu_torch, name) is not None, name
@@ -124,22 +124,35 @@ def test_torch_binding_exports_the_jax_binding_names():
         assert getattr(horovod_tpu_torch.torch, name) is not None, name
 
 
-# The JAX package's DLRM names, whose port waits for ``sparse/``
-# (ROADMAP.md Queue 1, item 16).
 DLRM_NAMES = {"DLRMConfig", "DLRMDense", "bce_logits_loss",
               "dlrm_tiny_config", "synthetic_click_batch"}
 CONVERTERS = {"convert_flax_bert_params", "convert_flax_gpt_params",
-              "convert_flax_resnet_params", "convert_flax_mnist_params"}
+              "convert_flax_resnet_params", "convert_flax_mnist_params",
+              "convert_flax_dlrm_params"}
 
 
 def test_models_export_the_jax_names_less_dlrm_plus_converters():
+    """Since the sparse engine is ported, "less DLRM" is empty: the JAX
+    list (DLRM names included) plus the five converters."""
     import horovod_tpu.models
     import horovod_tpu_torch.models
     assert DLRM_NAMES <= set(horovod_tpu.models.__all__)
     assert set(horovod_tpu_torch.models.__all__) == \
-        (set(horovod_tpu.models.__all__) - DLRM_NAMES) | CONVERTERS
+        set(horovod_tpu.models.__all__) | CONVERTERS
     for name in horovod_tpu_torch.models.__all__:
         assert getattr(horovod_tpu_torch.models, name) is not None, name
+
+
+def test_sparse_and_serve_export_the_jax_names():
+    import horovod_tpu.serve
+    import horovod_tpu.sparse
+    import horovod_tpu_torch.serve
+    import horovod_tpu_torch.sparse
+    for jmod, tmod in ((horovod_tpu.sparse, horovod_tpu_torch.sparse),
+                       (horovod_tpu.serve, horovod_tpu_torch.serve)):
+        assert tmod.__all__ == jmod.__all__
+        for name in tmod.__all__:
+            assert getattr(tmod, name) is not None, name
 
 
 def test_parallel_exports_the_jax_names():
