@@ -11,8 +11,9 @@ BERT-base sharded over four ranks (fsdp x tp and dp x tp DTensor steps),
 runs the reference's ResNet-50 synthetic benchmark in a world of one and
 at two ranks, runs ring and Ulysses attention at GPT-2 small's
 attention widths and the pipeline x expert-parallel step over four
-ranks, and trains DLRM-tiny at two ranks while a replica on the card
-serves its durable commits over HTTP.
+ranks, trains DLRM-tiny at two ranks while a replica on the card
+serves its durable commits over HTTP, and fits the MNIST CNN at two
+ranks through the Spark estimator API and resumes it from its Store.
 
     python3 chip_smoke.py
 
@@ -83,6 +84,17 @@ card, HTTP under a job secret) at 50 queries/s of Zipf lookups and bags.
 Each rank's losses and final parameters and shards must equal a
 one-process oracle's exactly, every answer the committed rows at its
 stamped step, and the replica must end on the last commit.
+
+The spark_estimator phase fits the port's ``MnistCNN`` with
+``spark.torch.TorchEstimator`` to 8192 synthetic rows (a pandas
+DataFrame, one-hot labels of a random linear teacher) in a
+``FilesystemStore``, at two ranks on ``LocalBackend`` (two workers of
+``python -c``, both on this card over gloo), for two epochs, then
+resumes a copy with ``epochs=3`` from the Store's checkpoint.  Each
+per-epoch loss of both ranks and the parameters after each fit must
+equal a replay of both ranks' batches in this process, the fitted
+model's predictions on 256 held-out rows its forward, and each rank's
+gradients must go through the fusion kernel.
 """
 
 import ast
@@ -132,6 +144,7 @@ from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from horovod_tpu_torch.ops import fusion_buffer as fb  # noqa: E402
 from horovod_tpu_torch.runner import job_secret  # noqa: E402
 from horovod_tpu_torch.runner import safe_shell_exec  # noqa: E402
+from horovod_tpu_torch.spark import LocalBackend  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1992,9 +2005,11 @@ GPT_LR, BERT_LR = 1e-2, 1e-4  # the steps' defaults (optax's in JAX)
 # after one (the sharded gradients through Adam's first step, about
 # lr x sign(g), which turns the rounding of near-zero gradients into
 # whole steps), by model; each below the gap an update from half the
-# batch gives (unsharded_losses).
+# batch gives (unsharded_losses).  GPT's step 2 with the weights of
+# seed 3: 1.30e-3, the reordered update 1.09e-3, the half batch 1.80e-2
+# (PERF.md section 6).
 STEP1_RTOL = 1e-3
-STEP2_RTOL = {"gpt": 1e-2, "bert": 5e-4}
+STEP2_RTOL = {"gpt": 2e-3, "bert": 5e-4}
 
 
 def sharded_ids(vocab_size: int) -> torch.Tensor:
@@ -2897,6 +2912,37 @@ def dlrm_setup(rank: int, size: int):
                                 for t in tables]
 
 
+def dlrm_draws() -> dict:
+    """sha256 (hex) of each seeded draw of the phase, made on the host as
+    the phase makes it: rank 0's first batch (numpy's ``zipf`` ids, then
+    the rest of the batch), the dense part's truncated-normal init
+    (``models/gpt.py:_init_rng``, numpy's legacy ``RandomState``) and
+    the splitmix64 rows of rank 0's shard of
+    table 0.  ``tests/test_torch_port_dlrm.py`` holds each against the
+    same draw on the CPU."""
+    import numpy as np
+    from horovod_tpu_torch.models import dlrm
+    from horovod_tpu_torch.sparse import ShardedEmbedding
+    cfg = dlrm.dlrm_tiny_config()
+    dense, ids, offsets, labels = dlrm.synthetic_click_batch(
+        np.random.default_rng([0, 1]), DLRM_BATCH, cfg)
+    model = dlrm.DLRMDense(cfg, device="cpu", seed=DLRM_SEED)
+    table = ShardedEmbedding("dlrm.t0", cfg.table_rows[0], cfg.embed_dim,
+                             rank=0, size=2, seed=7, device="cpu")
+
+    def sha(*arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    return {"zipf_ids": sha(*ids), "batch_rest": sha(dense, offsets, labels),
+            "trunc_normal_init": sha(*(v.numpy() for v in
+                                       model.state_dict().values())),
+            "splitmix64_rows": sha(table.local.numpy()),
+            "numpy": np.__version__, "torch": torch.__version__}
+
+
 def dlrm_forward(cfg, model, bags, rank: int, step: int):
     """Rank ``rank``'s batch of ``step`` (bench.py's seeding): pooled
     embeddings, loss, and the gradients of the dense parameters (one flat
@@ -3245,7 +3291,7 @@ def phase_dlrm_serve() -> dict:
          fusion_launches={r["rank"]: r["fusion"] for r in results},
          losses={r["rank"]: r["losses"] for r in results},
          oracle_gaps=gaps, half_batch_fault_gap=fault_gap,
-         seconds=time.perf_counter() - t0)
+         draws=dlrm_draws(), seconds=time.perf_counter() - t0)
     for r in results:
         assert r["backend"] == "gloo", r["backend"]
         assert r["server"] == "NativeCoordinatorServer", r["server"]
@@ -3267,6 +3313,245 @@ def phase_dlrm_serve() -> dict:
     return {"flash": 0, "fusion": sum(r["fusion"]["pack"] +
                                       r["fusion"]["unpack"]
                                       for r in results)}
+
+
+SPARK_SEED = 0             # rows, teacher, model and the estimator's seed
+SPARK_ROWS = 8192          # training rows (images [1, 28, 28] fp32)
+SPARK_HELDOUT = 256        # rows for the fitted model's predictions
+SPARK_BATCH = 128          # rows per rank and step
+SPARK_LR, SPARK_MOMENTUM = 0.05, 0.9
+SPARK_PARTS = 4            # partitions per process
+SPARK_EPOCHS = (2, 3)      # fit, then resume to
+SPARK_TIMEOUT_S = 600
+# Gates: each between the rounding floor of a replay on one card (the
+# convolutions' reductions run in another order) and the fault of
+# rank 1's batch left out of the average (PERF.md section 6).
+SPARK_LOSS_ATOL = 1e-4
+SPARK_PARAM_ATOL = 1e-4
+SPARK_PRED_ATOL = 1e-3
+# The loss must fall: epoch 2's mean loss at least this far below epoch
+# 0's on each rank, between a net that never steps (its drop is the
+# batches' spread) and the measured fit (PERF.md section 6).
+SPARK_LOSS_DROP = 0.01
+
+
+class CountedTrainer:
+    """Runs an estimator's trainer on one rank and reports, beside its
+    result, where the net's parameters ended up, the fusion kernel's
+    launches and plain calls in this process, and its peak device
+    memory."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+
+    def __call__(self, *args):
+        result = self.trainer(*args)
+        return result, {
+            "device": str(next(self.trainer.model.parameters()).device),
+            "fusion": dict(fb.launches),
+            "fusion_plain_calls": dict(fb.plain_calls),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+class CountingBackend(LocalBackend):
+    """A ``LocalBackend`` that runs each trainer inside ``CountedTrainer``
+    and keeps every rank's result and report."""
+
+    def run(self, fn, args=(), extra_env=None):
+        self.started = time.perf_counter()
+        out = super().run(CountedTrainer(fn), args, extra_env)
+        self.results = [r for r, _ in out]
+        self.reports = [rep for _, rep in out]
+        return self.results
+
+
+def spark_data():
+    """Synthetic rows of the reference's MNIST estimator example: images
+    ``[1, 28, 28]`` in [0, 1) and one-hot labels of a fixed random linear
+    teacher, the first ``SPARK_ROWS`` to train on, the rest held out."""
+    import numpy as np
+    rng = np.random.RandomState(SPARK_SEED)
+    n = SPARK_ROWS + SPARK_HELDOUT
+    images = rng.rand(n, 1, 28, 28).astype(np.float32)
+    teacher = rng.standard_normal((28 * 28, 10)).astype(np.float32)
+    labels = np.eye(10, dtype=np.float32)[
+        ((images.reshape(n, -1) - 0.5) @ teacher).argmax(1)]
+    return images, labels
+
+
+def spark_oracle(init_state, store, meta, fault: bool = False,
+                 lr: float = SPARK_LR) -> dict:
+    """The two-rank fit replayed in this process on the card, for all
+    ``SPARK_EPOCHS[-1]`` epochs without a break: each step takes both
+    ranks' batches as ``util.stream_batches`` gives them to the ranks,
+    averages the two gradients (their sum times 0.5) and steps the same
+    optimizer.  With ``fault``, rank 1's gradient is left out; with
+    ``lr=0`` the net never moves."""
+    import itertools
+    from horovod_tpu_torch.models.mnist import MnistCNN
+    from horovod_tpu_torch.spark import util
+    net = MnistCNN(device="cuda", seed=SPARK_SEED)
+    net.load_state_dict(init_state)
+    opt = torch.optim.SGD(net.parameters(), lr=lr,
+                          momentum=SPARK_MOMENTUM)
+    loss_fn = torch.nn.CrossEntropyLoss()
+    steps = util.sync_steps_per_epoch(meta, "train", 2, SPARK_BATCH,
+                                      ceil=True, store=store, col="image")
+    losses, states = {0: [], 1: []}, []
+    for epoch in range(SPARK_EPOCHS[-1]):
+        batches = [itertools.islice(util.stream_batches(
+            store, "train", r, 2, ["image", "label"], SPARK_BATCH,
+            seed=SPARK_SEED + epoch, drop_remainder=False), steps)
+            for r in (0, 1)]
+        sums = [0.0, 0.0]
+        for pair in zip(*batches):
+            grads = []
+            for r, (x, y) in enumerate(pair):
+                net.zero_grad()
+                loss = loss_fn(net(torch.as_tensor(x).cuda()).squeeze(-1),
+                               torch.as_tensor(y).cuda())
+                loss.backward()
+                sums[r] += float(loss.detach())
+                grads.append([p.grad.clone() for p in net.parameters()])
+            for p, g0, g1 in zip(net.parameters(), *grads):
+                p.grad = g0 if fault else (g0 + g1) * 0.5
+            opt.step()
+        for r in (0, 1):
+            losses[r].append(sums[r] / steps)
+        states.append({k: v.cpu().clone()
+                       for k, v in net.state_dict().items()})
+    return {"losses": losses, "states": states, "net": net}
+
+
+def phase_spark_estimator() -> dict:
+    """The Estimator API on the card: ``TorchEstimator`` fits the port's
+    ``MnistCNN`` (full widths) to ``SPARK_ROWS`` synthetic rows in a
+    ``FilesystemStore`` at two ranks on ``LocalBackend`` (both on this
+    card, gloo), ``SGD(0.05, momentum 0.9)``, batch 128 per rank, for two
+    epochs; a copy with ``epochs=3`` resumes from the Store's checkpoint.
+    Gates: both ranks trained on the card, the resume starts at epoch 2,
+    every per-epoch loss and the parameters after each fit equal
+    :func:`spark_oracle`'s within ``SPARK_LOSS_ATOL``/``SPARK_PARAM_ATOL``
+    (the fault lies far outside), each rank's loss falls by
+    ``SPARK_LOSS_DROP`` from epoch 0 to 2 (a net that never steps does
+    not), the fitted model's predictions on the
+    card equal the oracle's forward, and each rank's gradients went
+    through the fusion kernel, as many packs as unpacks, no plain call."""
+    import copy
+    import numpy as np
+    from horovod_tpu_torch.models.mnist import MnistCNN
+    from horovod_tpu_torch.spark import FilesystemStore, util
+    from horovod_tpu_torch.spark.estimator import checkpoint_epoch
+    from horovod_tpu_torch.spark.torch import TorchEstimator
+    t0 = time.perf_counter()
+    import pandas
+    images, labels = spark_data()
+    frame = pandas.DataFrame({"image": list(images[:SPARK_ROWS]),
+                              "label": list(labels[:SPARK_ROWS])})
+    net = MnistCNN(device="cpu", seed=SPARK_SEED)
+    init_state = copy.deepcopy(net.state_dict())
+    backend = CountingBackend(2, verbose=1, timeout=SPARK_TIMEOUT_S)
+    fits = []
+    with tempfile.TemporaryDirectory() as d:
+        store = FilesystemStore(os.path.join(d, "store"))
+        est = TorchEstimator(
+            model=net, optimizer=torch.optim.SGD(
+                net.parameters(), lr=SPARK_LR, momentum=SPARK_MOMENTUM),
+            loss=torch.nn.CrossEntropyLoss(), feature_cols=["image"],
+            label_cols=["label"], store=store, backend=backend,
+            epochs=SPARK_EPOCHS[0], batch_size=SPARK_BATCH,
+            partitions_per_process=SPARK_PARTS, run_id="spark_estimator",
+            seed=SPARK_SEED, verbose=1)
+        for epochs in SPARK_EPOCHS:
+            t = time.perf_counter()
+            if not fits:
+                model = est.fit(frame)
+                prepare_s = backend.started - t
+            else:
+                model = est.copy({"epochs": epochs}).fit_on_prepared_data()
+            fits.append({"seconds": time.perf_counter() - t,
+                         "model": model, "results": backend.results,
+                         # The driver's net, which the next fit reloads.
+                         "state": {k: v.cpu().clone() for k, v in
+                                   model.getModel().state_dict().items()},
+                         "reports": backend.reports,
+                         "checkpoint_epoch": checkpoint_epoch(
+                             store, "spark_estimator")})
+        store_bytes = sum(
+            os.path.getsize(os.path.join(root, f))
+            for root, _, files in os.walk(store.get_train_data_path())
+            for f in files)
+        meta = util.read_metadata(store)
+        steps = util.sync_steps_per_epoch(meta, "train", 2, SPARK_BATCH,
+                                          ceil=True)
+        oracle = spark_oracle(init_state, store, meta)
+        fault = spark_oracle(init_state, store, meta, fault=True)
+        frozen = spark_oracle(init_state, store, meta, lr=0.0)
+    fitted = fits[-1]["model"]
+    held = images[SPARK_ROWS:]
+    out = fitted.transform(pandas.DataFrame({"image": list(held)}))
+    pred = np.asarray(out["label__output"].tolist())
+    with torch.no_grad():
+        want = oracle["net"](torch.from_numpy(held).cuda()).cpu().numpy()
+    pred_gap = float(np.abs(pred - want).max())
+    accuracy = float((pred.argmax(1) ==
+                      labels[SPARK_ROWS:].argmax(1)).mean())
+    histories = {r: fits[0]["results"][r]["history"] +
+                 fits[1]["results"][r]["history"] for r in (0, 1)}
+    gaps = {"losses": max(abs(a - b) for r in (0, 1) for a, b in zip(
+        histories[r], oracle["losses"][r])),
+        "params_fit": max_abs_gap(fits[0]["state"],
+                                  oracle["states"][SPARK_EPOCHS[0] - 1]),
+        "params_resumed": max_abs_gap(fits[1]["state"],
+                                      oracle["states"][-1])}
+    fault_gap = max_abs_gap(fault["states"][-1], oracle["states"][-1])
+    drops = {"fit": min(h[0] - h[-1] for h in histories.values()),
+             "frozen_net": max(abs(h[0] - h[-1])
+                               for h in frozen["losses"].values())}
+    emit("spark_estimator",
+         model="MnistCNN: conv 32, conv 64, pool, dense 128, dense 10, "
+         "fp32", rows=SPARK_ROWS, ranks=2, backend="LocalBackend",
+         batch_per_rank=SPARK_BATCH, partitions=2 * SPARK_PARTS,
+         prepare_s=prepare_s, store_bytes=store_bytes,
+         fit_seconds=[f["seconds"] for f in fits],
+         start_epochs=[f["model"].start_epoch for f in fits],
+         checkpoint_epochs=[f["checkpoint_epoch"] for f in fits],
+         steps_per_epoch=steps, losses=histories,
+         oracle_losses=oracle["losses"],
+         devices=[[rep["device"] for rep in f["reports"]] for f in fits],
+         fusion_launches=[[rep["fusion"] for rep in f["reports"]]
+                          for f in fits],
+         fusion_plain_calls=[[rep["fusion_plain_calls"]
+                              for rep in f["reports"]] for f in fits],
+         max_memory_allocated=[[rep["max_memory_allocated"]
+                                for rep in f["reports"]] for f in fits],
+         oracle_gaps=gaps, rank1_left_out_fault_gap=fault_gap,
+         loss_drops=drops,
+         prediction_gap=pred_gap, heldout_accuracy=accuracy,
+         seconds=time.perf_counter() - t0)
+    for f in fits:
+        for rep in f["reports"]:
+            assert rep["device"].startswith("cuda"), rep
+            assert rep["fusion"]["pack"] > 0, rep
+            assert rep["fusion"]["pack"] == rep["fusion"]["unpack"], rep
+            # A plain call takes a CPU tensor only: here the two
+            # broadcasts of broadcast_optimizer_state's pickled state
+            # (its length, then its bytes).
+            assert rep["fusion_plain_calls"] == {"pack": 2, "unpack": 2}, \
+                rep
+    assert [f["model"].start_epoch for f in fits] == [0, SPARK_EPOCHS[0]]
+    assert [f["checkpoint_epoch"] for f in fits] == \
+        [e - 1 for e in SPARK_EPOCHS]
+    assert all(math.isfinite(x) for h in histories.values() for x in h)
+    assert gaps["losses"] <= SPARK_LOSS_ATOL, gaps
+    assert drops["fit"] >= SPARK_LOSS_DROP > drops["frozen_net"], drops
+    assert max(gaps["params_fit"], gaps["params_resumed"]) <= \
+        SPARK_PARAM_ATOL, gaps
+    assert fault_gap > 10 * SPARK_PARAM_ATOL, fault_gap
+    assert pred.shape == (SPARK_HELDOUT, 10) and pred_gap <= SPARK_PRED_ATOL
+    return {"flash": 0, "fusion": sum(
+        rep["fusion"]["pack"] + rep["fusion"]["unpack"]
+        for f in fits for rep in f["reports"])}
 
 
 def main():
@@ -3299,25 +3584,34 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
     t0 = time.perf_counter()
-    phase_build()
-    flash_row = phase_kernels()
-    fusion_row = phase_fusion_kernel()
-    phase_model_parity()
-    phase_train()
-    phase_nccl_world1()
-    launches, first_native = phase_train_2rank()
-    coordinator = phase_coordinator(first_native)
-    elastic = phase_elastic()
-    durable = phase_tune_durable()
-    sharded = phase_sharded_train()
-    resnet50 = phase_resnet50()
-    context_parallel = phase_context_parallel()
-    dlrm_serve = phase_dlrm_serve()
+    seconds = {}
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        seconds[phase.__name__[len("phase_"):]] = time.perf_counter() - t
+        return out
+
+    timed(phase_build)
+    flash_row = timed(phase_kernels)
+    fusion_row = timed(phase_fusion_kernel)
+    timed(phase_model_parity)
+    timed(phase_train)
+    timed(phase_nccl_world1)
+    launches, first_native = timed(phase_train_2rank)
+    coordinator = timed(phase_coordinator, first_native)
+    elastic = timed(phase_elastic)
+    durable = timed(phase_tune_durable)
+    sharded = timed(phase_sharded_train)
+    resnet50 = timed(phase_resnet50)
+    context_parallel = timed(phase_context_parallel)
+    dlrm_serve = timed(phase_dlrm_serve)
+    spark_estimator = timed(phase_spark_estimator)
     paths = (launches, coordinator, elastic, durable, sharded, resnet50,
-             context_parallel, dlrm_serve)
+             context_parallel, dlrm_serve, spark_estimator)
     flash_row["launches"] = sum(p["flash"] for p in paths)
     fusion_row["launches"] = sum(p["fusion"] for p in paths)
-    emit("script", seconds=time.perf_counter() - t0)
+    emit("script", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(CARD, flush=True)
     print(json.dumps({"kernels": [flash_row, fusion_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {

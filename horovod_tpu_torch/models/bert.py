@@ -30,7 +30,8 @@ from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.layers import embed, on_local_shards
-from .gpt import _dense, _layer_norm, _trunc_normal, resolve_device
+from .gpt import (_dense, _init_rng, _layer_norm, _normal, _trunc_normal,
+                  resolve_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,9 +219,9 @@ class BertForMaskedLM(nn.Module):
     """Encoder + tied-embedding MLM head.
 
     ``device=None`` builds on the card (and raises if there is none);
-    weights are drawn on the CPU from ``torch.Generator().manual_seed(
-    seed)`` with flax's default initialisers, as
-    ``GPTLMHeadModel.reset_parameters`` draws them."""
+    weights are drawn on the CPU from ``_init_rng(seed)`` (numpy) with
+    flax's default initialisers, as ``GPTLMHeadModel.reset_parameters``
+    draws them."""
 
     def __init__(self, cfg: BertConfig, device=None, seed: int = 0):
         super().__init__()
@@ -236,16 +237,15 @@ class BertForMaskedLM(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0):
-        g = torch.Generator().manual_seed(seed)
+        rng = _init_rng(seed)
         for mod in self.modules():
             if isinstance(mod, nn.Embedding):
                 # flax Embed: variance_scaling(1, fan_in, normal,
                 # out_axis=0) on a [num, H] table, whose fan-in is num.
-                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.num_embeddings),
-                                   generator=g)
+                _normal(mod.weight, 1.0 / math.sqrt(mod.num_embeddings), rng)
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
-                _trunc_normal(mod.weight, mod.in_features, g)
+                _trunc_normal(mod.weight, mod.in_features, rng)
                 mod.bias.zero_()
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)

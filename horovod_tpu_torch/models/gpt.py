@@ -18,6 +18,8 @@ tree (flattened with ``/``) onto this module's ``state_dict``.
 
 import dataclasses
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
@@ -160,20 +162,75 @@ class GPTBlock(nn.Module):
         return x + F.dropout(m, cfg.dropout, self.training)
 
 
-def _trunc_normal(t: torch.Tensor, fan_in: int, g: torch.Generator):
+_DRAW_CHUNK = 1 << 17
+
+
+class _SeededDraws:
+    """The generator of the port's seeded weights.  Chunk ``c`` (of
+    ``_DRAW_CHUNK`` elements) of a model's ``k``-th draw comes from
+    numpy's legacy ``RandomState([seed, k, c])``, whose streams numpy
+    keeps fixed from version to version (a ``torch.Generator``'s
+    truncated-normal draws differ between torch 2.11 and 2.13), so a
+    seed gives the same weights on every machine.  The chunks are drawn
+    in threads: numpy releases the interpreter lock while it draws."""
+
+    def __init__(self, seed: int):
+        self.seed, self.count = seed, 0
+
+    def fill(self, t: torch.Tensor, std: float, truncate: bool):
+        """Fill ``t`` with N(0, std^2) (``truncate``: at two standard
+        deviations, a draw outside them drawn again, in order), in
+        float64 rounded once to ``t``'s type.  A ``meta`` tensor holds
+        no values: no draw."""
+        key = [self.seed, self.count]
+        self.count += 1
+        if t.is_meta:
+            return
+        flat = t.detach().view(-1)
+        n = flat.numel()
+
+        def chunk(c):
+            lo = c * _DRAW_CHUNK
+            rng = np.random.RandomState(key + [c])
+            x = rng.standard_normal(min(_DRAW_CHUNK, n - lo))
+            if truncate:
+                out = np.abs(x) > 2.0
+                while out.any():
+                    x[out] = rng.standard_normal(int(out.sum()))
+                    out = np.abs(x) > 2.0
+            x *= std
+            flat[lo:lo + len(x)].copy_(torch.from_numpy(x))
+
+        chunks = range(-(-n // _DRAW_CHUNK))
+        if len(chunks) == 1:
+            chunk(0)
+            return
+        with ThreadPoolExecutor(min(len(chunks), os.cpu_count() or 1)) as ex:
+            list(ex.map(chunk, chunks))
+
+
+def _init_rng(seed: int) -> _SeededDraws:
+    return _SeededDraws(seed)
+
+
+def _normal(t: torch.Tensor, std: float, rng: _SeededDraws):
+    rng.fill(t, std, truncate=False)
+
+
+def _trunc_normal(t: torch.Tensor, fan_in: int, rng: _SeededDraws):
     # flax's lecun_normal: variance 1/fan_in from a normal truncated at
     # two standard deviations (std rescaled by the truncation's 0.8796).
-    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=g)
+    rng.fill(t, 1.0 / math.sqrt(fan_in) / 0.87962566103423978,
+             truncate=True)
 
 
 class GPTLMHeadModel(nn.Module):
     """Decoder stack + tied-embedding LM head.
 
     ``device=None`` builds on the card (and raises if there is none);
-    weights are drawn on the CPU from ``torch.Generator().manual_seed(
-    seed)`` with flax's default initialisers, so a seed gives the same
-    model on every device."""
+    weights are drawn on the CPU from ``_init_rng(seed)`` (numpy) with
+    flax's default initialisers, so a seed gives the same model on every
+    device."""
 
     def __init__(self, cfg: GPTConfig, device=None, seed: int = 0):
         super().__init__()
@@ -191,15 +248,14 @@ class GPTLMHeadModel(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed: int = 0):
-        g = torch.Generator().manual_seed(seed)
+        rng = _init_rng(seed)
         for emb in (self.word_embeddings, self.position_embeddings):
             # flax Embed: variance_scaling(1, fan_in, normal, out_axis=0)
             # on a [num, H] table, whose fan-in is num.
-            emb.weight.normal_(0.0, 1.0 / math.sqrt(emb.num_embeddings),
-                               generator=g)
+            _normal(emb.weight, 1.0 / math.sqrt(emb.num_embeddings), rng)
         for mod in self.modules():
             if isinstance(mod, nn.Linear):
-                _trunc_normal(mod.weight, mod.in_features, g)
+                _trunc_normal(mod.weight, mod.in_features, rng)
                 mod.bias.zero_()
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)

@@ -13,15 +13,15 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .gpt import _trunc_normal, resolve_device
+from .gpt import _init_rng, _trunc_normal, resolve_device
 
 
 def _init(model: nn.Module, seed: int, device):
     # flax's defaults: lecun_normal kernels, zero biases.
-    g = torch.Generator().manual_seed(seed)
+    rng = _init_rng(seed)
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d)):
-            _trunc_normal(m.weight, m.weight[0].numel(), g)
+            _trunc_normal(m.weight, m.weight[0].numel(), rng)
             nn.init.zeros_(m.bias)
     model.to(resolve_device(device))
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .gpt import _trunc_normal, resolve_device
+from .gpt import _init_rng, _trunc_normal, resolve_device
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -201,14 +201,19 @@ class ResNet(nn.Module):
                 in_ch = filters * block_cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(in_ch, num_classes)
-        g = torch.Generator().manual_seed(seed)
+        rng = _init_rng(seed)
         for m in self.modules():
             if isinstance(m, Conv):
-                _trunc_normal(m.weight, m.weight[0].numel(), g)
-        _trunc_normal(self.head.weight, in_ch, g)
+                _trunc_normal(m.weight, m.weight[0].numel(), rng)
+        _trunc_normal(self.head.weight, in_ch, rng)
         with torch.no_grad():
             self.head.bias.zero_()
         self.to(resolve_device(device))
+
+    def flax_path(self, name: str) -> str:
+        """The flax path of this model's parameter or buffer ``name``
+        (:func:`flax_path` with this model's block class)."""
+        return flax_path(name, type(self.blocks[0]).__name__)
 
     def forward(self, x, train: Optional[bool] = None):
         train = self.training if train is None else train
@@ -242,21 +247,47 @@ def _flat(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+# The port's names of the modules that flax names after their class
+# (``{Class}_{index}``); every other module keeps flax's name.
+_LISTS = {"ResNetBlock": "blocks", "BottleneckResNetBlock": "blocks",
+          "Conv": "convs", "BatchNorm": "norms"}
+
+
 def _module_path(parts) -> str:
     names = []
     for p in parts:
         head, _, num = p.rpartition("_")
-        if head in ("ResNetBlock", "BottleneckResNetBlock"):
-            names += ["blocks", num]
-        elif head == "Conv":
-            names += ["convs", num]
-        elif head == "BatchNorm":
-            names += ["norms", num]
+        if head in _LISTS:
+            names += [_LISTS[head], num]
         elif p == "Dense_0":
             names.append("head")
         else:
             names.append(p)
     return ".".join(names)
+
+
+def flax_path(name: str, block: str) -> str:
+    """The flax path of the parameter or buffer ``name`` of a ResNet
+    whose blocks are ``block`` (a class name): the inverse of the
+    converter's map, e.g. ``blocks.3.convs.1.weight`` is
+    ``BottleneckResNetBlock_3/Conv_1/kernel``."""
+    *mods, leaf = name.split(".")
+    classes = {"blocks": block, "convs": "Conv", "norms": "BatchNorm"}
+    path, i = [], 0
+    while i < len(mods):
+        if mods[i] in classes:
+            path.append(f"{classes[mods[i]]}_{mods[i + 1]}")
+            i += 2
+        else:
+            path.append("Dense_0" if mods[i] == "head" else mods[i])
+            i += 1
+    if leaf == "weight":
+        leaf = ("kernel" if path[-1].startswith(("Conv", "conv", "Dense"))
+                else "scale")
+    else:
+        leaf = {"running_mean": "mean", "running_var": "var"}.get(leaf,
+                                                                  leaf)
+    return "/".join(path + [leaf])
 
 
 def convert_flax_resnet_params(params, batch_stats

@@ -16,7 +16,8 @@ parameter's placement, so the rules shard them too.
 """
 
 import re
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 from torch import nn
@@ -113,24 +114,41 @@ _QKV = ("query", "key", "value")
 
 
 def flax_layout(name: str, shape: Sequence[int],
-                num_heads: Optional[int] = None
+                num_heads: Optional[int] = None,
+                flax_path: Optional[Callable[[str], str]] = None
                 ) -> Tuple[str, Tuple[int, ...], List[List[int]]]:
     """``(flax path, flax shape, dims)`` of the parameter ``name`` of
     shape ``shape``: ``dims[t]`` lists the flax dims (major first) that
     make up dim ``t`` of this package's tensor.  Attention kernels and
-    biases need ``num_heads``."""
+    biases need ``num_heads``.  ``flax_path`` gives the flax path of a
+    name where the model names its modules otherwise than flax does
+    (``ResNet.flax_path``); by default ``layers.N`` is flax's
+    ``layer_N`` and every other module keeps its name."""
     parts = name.split(".")
-    path: List[str] = []
-    i = 0
-    while i < len(parts) - 1:
-        if parts[i] == "layers" and parts[i + 1].isdigit():
-            path.append(f"layer_{parts[i + 1]}")
-            i += 2
+    if flax_path is not None:
+        *path, flax_leaf = flax_path(name).split("/")
+    else:
+        path = []
+        i = 0
+        while i < len(parts) - 1:
+            if parts[i] == "layers" and parts[i + 1].isdigit():
+                path.append(f"layer_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        mod, leaf = (path[-1] if path else ""), parts[-1]
+        if not path:                               # e.g. mlm_bias
+            flax_leaf = leaf
+        elif leaf == "weight" and mod.endswith("embeddings"):
+            flax_leaf = "embedding"
+        elif leaf == "weight" and mod.endswith("norm"):
+            flax_leaf = "scale"
+        elif leaf in ("weight", "bias"):
+            flax_leaf = "kernel" if leaf == "weight" else "bias"
         else:
-            path.append(parts[i])
-            i += 1
+            raise KeyError(f"no flax layout for parameter {name!r}")
     mod = path[-1] if path else ""
-    leaf = parts[-1]
     shape = tuple(int(s) for s in shape)
     in_attention = len(path) >= 2 and path[-2] == "attention"
 
@@ -139,13 +157,11 @@ def flax_layout(name: str, shape: Sequence[int],
             raise ValueError(f"{name}: attention layouts need num_heads")
         return (num_heads, n // num_heads)
 
-    if not path:                                   # e.g. mlm_bias
-        return leaf, shape, [[d] for d in range(len(shape))]
-    if leaf == "weight" and mod.endswith("embeddings"):
-        flax_leaf, fshape, dims = "embedding", shape, [[0], [1]]
-    elif leaf == "weight" and mod.endswith("norm"):
-        flax_leaf, fshape, dims = "scale", shape, [[0]]
-    elif leaf == "weight":
+    fshape, dims = shape, [[d] for d in range(len(shape))]
+    if flax_leaf == "kernel" and len(shape) == 4:  # OIHW -> HWIO
+        out, inp, h, w = shape
+        fshape, dims = (h, w, inp, out), [[3], [2], [0], [1]]
+    elif flax_leaf == "kernel":
         out, inp = shape
         if in_attention and mod in _QKV:           # [H, heads, hd]
             fshape, dims = (inp, *heads_split(out)), [[1, 2], [0]]
@@ -153,15 +169,8 @@ def flax_layout(name: str, shape: Sequence[int],
             fshape, dims = (*heads_split(inp), out), [[2], [0, 1]]
         else:                                      # [in, out]
             fshape, dims = (inp, out), [[1], [0]]
-        flax_leaf = "kernel"
-    elif leaf == "bias":
-        if in_attention and mod in _QKV:           # [heads, hd]
-            fshape, dims = heads_split(shape[0]), [[0, 1]]
-        else:
-            fshape, dims = shape, [[0]]
-        flax_leaf = "bias"
-    else:
-        raise KeyError(f"no flax layout for parameter {name!r}")
+    elif flax_leaf == "bias" and in_attention and mod in _QKV:
+        fshape, dims = heads_split(shape[0]), [[0, 1]]  # [heads, hd]
     return "/".join(path + [flax_leaf]), tuple(fshape), dims
 
 
@@ -193,22 +202,27 @@ def _named_shapes(module_or_state_dict) -> Tuple[Dict[str, Tuple[int, ...]],
 def infer_shardings(module_or_state_dict: Union[nn.Module,
                                                 Mapping[str, torch.Tensor]],
                     mesh: MeshLike, rules: Rules, *,
-                    num_heads: Optional[int] = None
+                    num_heads: Optional[int] = None,
+                    flax_path: Optional[Callable[[str], str]] = None
                     ) -> Dict[str, NamedSharding]:
     """``{parameter name: NamedSharding}`` by the first rule whose regex
     matches the parameter's flax path, fitted to its flax shape
     (:func:`_fit_spec`) and carried onto this package's layout.  A
-    module gives its names, shapes and ``config.num_heads``; a state
-    dict needs ``num_heads`` for attention.  0-d tensors replicate."""
+    module gives its names, shapes, ``config.num_heads`` and its own
+    ``flax_path`` where it has one; a state dict needs ``num_heads`` for
+    attention and ``flax_path`` for a model whose names are not flax's
+    (``models.resnet.flax_path``).  0-d tensors replicate."""
     compiled = [(re.compile(pat), spec) for pat, spec in rules]
     named, heads = _named_shapes(module_or_state_dict)
     heads = num_heads if num_heads is not None else heads
+    if flax_path is None:
+        flax_path = getattr(module_or_state_dict, "flax_path", None)
     out = {}
     for name, shape in named.items():
         if not shape:
             out[name] = NamedSharding(mesh, P())
             continue
-        path, fshape, dims = flax_layout(name, shape, heads)
+        path, fshape, dims = flax_layout(name, shape, heads, flax_path)
         fspec = P(*([None] * len(fshape)))
         for pat, spec in compiled:
             if pat.search(path):
@@ -219,13 +233,14 @@ def infer_shardings(module_or_state_dict: Union[nn.Module,
 
 
 def shard_tree(module_or_state_dict, mesh, rules: Rules, *,
-               num_heads: Optional[int] = None):
+               num_heads: Optional[int] = None,
+               flax_path: Optional[Callable[[str], str]] = None):
     """Place a module's parameters (in place, as ``DTensor``
     parameters; returns the module) or a state dict's tensors (returns
     a new dict of ``DTensor``) on ``mesh`` by ``rules``.  Every rank
     holds the whole tensor and keeps its own shard of it."""
     shardings = infer_shardings(module_or_state_dict, mesh, rules,
-                                num_heads=num_heads)
+                                num_heads=num_heads, flax_path=flax_path)
     if not isinstance(module_or_state_dict, nn.Module):
         return {n: shardings[n].distribute(t)
                 for n, t in module_or_state_dict.items()}

@@ -881,3 +881,76 @@ def test_tables_and_replica_default_to_the_card(cuda, tmp_path):
             plane.stop()
     finally:
         mgr.close()
+
+
+def _inproc_fit(device, tmp_path, epochs=3, store=None):
+    """The port's ``TorchEstimator`` in a world of one in this process
+    (``device`` None: the card)."""
+    import io
+    import os
+    import numpy as np
+    import pandas as pd
+    from horovod_tpu_torch.spark import FilesystemStore
+    from horovod_tpu_torch.spark.backend import Backend
+    from horovod_tpu_torch.spark.torch import TorchEstimator
+
+    class InprocBackend(Backend):
+        def num_processes(self):
+            return 1
+
+        def run(self, fn, args=(), extra_env=None):
+            env = {"HOROVOD_RANK": "0", "HOROVOD_SIZE": "1",
+                   "HOROVOD_LOCAL_RANK": "0", "HOROVOD_LOCAL_SIZE": "1",
+                   "HOROVOD_CROSS_RANK": "0", "HOROVOD_CROSS_SIZE": "1"}
+            old = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                return [fn(*args)]
+            finally:
+                for k, v in old.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(64, 3).astype(np.float32)
+    df = pd.DataFrame({"x": list(x), "y": x @ np.float32([1, -2, 0.5])})
+    torch.manual_seed(0)
+    net = torch.nn.Linear(3, 1)
+    store = store or FilesystemStore(str(tmp_path / str(device)))
+    est = TorchEstimator(
+        model=net, optimizer=torch.optim.SGD(net.parameters(), lr=0.2,
+                                             momentum=0.5),
+        loss=torch.nn.MSELoss(), feature_cols=["x"], label_cols=["y"],
+        store=store, backend=InprocBackend(), epochs=epochs, batch_size=8,
+        run_id="card", device=device)
+    model = est.fit(df)
+    raw = store.read(store.get_checkpoint_path("card"))
+    return model, torch.load(io.BytesIO(raw), weights_only=False), df
+
+
+def test_estimator_fits_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    card, card_ckpt, df = _inproc_fit(None, tmp_path)
+    cpu, _, _ = _inproc_fit("cpu", tmp_path)
+    assert next(card.getModel().parameters()).is_cuda
+    torch.testing.assert_close(torch.tensor(card.history),
+                               torch.tensor(cpu.history), atol=1e-5,
+                               rtol=1e-5)
+    for k, v in cpu.getModel().state_dict().items():
+        torch.testing.assert_close(card.getModel().state_dict()[k].cpu(),
+                                   v, atol=1e-5, rtol=1e-5)
+    out = card.transform(df.head(4))
+    assert len(out["y__output"]) == 4
+
+
+def test_estimator_state_bytes_from_the_card_load_on_the_cpu(cuda,
+                                                             tmp_path):
+    """The Store's checkpoint saved by a rank on the card holds CPU
+    tensors (the JAX package's loader passes no map_location)."""
+    _, ckpt, _ = _inproc_fit(None, tmp_path, epochs=1)
+    tensors = list(ckpt["model"].values()) + [
+        v for s in ckpt["optimizer"]["state"].values() for v in s.values()
+        if isinstance(v, torch.Tensor)]
+    assert len(tensors) == 4                 # weight, bias, 2 momenta
+    assert {t.device.type for t in tensors} == {"cpu"}

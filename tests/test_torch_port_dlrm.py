@@ -277,3 +277,56 @@ def test_two_rank_tables_match_the_jax_replay(two_ranks):
             JTable(name, len(full), full.shape[1], rank=r, size=2,
                    seed=7 + int(name[-1])).local) for name in tables]
         assert all(moved), moved
+
+
+# sha256 of each seeded draw of chip_smoke.py's dlrm_serve phase, as its
+# `draws` field printed them on the card (NVIDIA H100 80GB HBM3, numpy
+# 2.3.5, torch 2.11.0+cu128) and as they are drawn here: rank 0's first
+# batch (seed [0, 1]), DLRMDense(seed=11)'s init, and rank 0's shard of
+# table "dlrm.t0" (seed 7) at size 2.  numpy's zipf stream changed
+# between numpy 2.0.2 and 2.3.5, and both packages draw the ids with it,
+# so its hash is per numpy version; the rest of the batch, the init
+# (drawn with numpy's legacy RandomState, one stream per draw and
+# chunk, since the torch.Generator's truncated normal differed between
+# torch 2.11 and 2.13) and the
+# splitmix64 rows are the same everywhere.
+ZIPF_IDS = {
+    "2.0.2": "93e43f4499da707bcbebf40a4be8f6b84a6e4faf780ad4192f9839f7aba85c69",
+    "2.3.5": "200035c537792a88963835882af97ca4c4c04bae724dac688688d26923b43354",
+}
+DRAWS = {
+    "batch_rest":
+        "896a8cb6a1f4ab4e4dd03da25d7619ed48036ccf303381af3d3b9fb60d3bf357",
+    "trunc_normal_init":
+        "595f37303296c0faa819c29dc8e3e0c700e6564076a8659afbbe379e3050c275",
+    "splitmix64_rows":
+        "a34669f2896898458ffb9bbb25eb710162cf7c61a7a58c505155b55daf3a1b89",
+}
+
+
+def _sha(*arrays):
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def test_seeded_draws_are_the_cards():
+    from horovod_tpu_torch.sparse import ShardedEmbedding
+    cfg = tdlrm.dlrm_tiny_config()
+    dense, ids, offsets, labels = tdlrm.synthetic_click_batch(
+        np.random.default_rng([0, 1]), 32, cfg)
+    model = tdlrm.DLRMDense(cfg, device="cpu", seed=11)
+    table = ShardedEmbedding("dlrm.t0", cfg.table_rows[0], cfg.embed_dim,
+                             rank=0, size=2, seed=7, device="cpu")
+    assert {"batch_rest": _sha(dense, offsets, labels),
+            "trunc_normal_init": _sha(*(v.numpy() for v in
+                                        model.state_dict().values())),
+            "splitmix64_rows": _sha(table.local.numpy())} == DRAWS
+    if np.__version__ in ZIPF_IDS:
+        assert _sha(*ids) == ZIPF_IDS[np.__version__]
+    # The JAX package draws the same ids from the same stream.
+    jids = jdlrm.synthetic_click_batch(np.random.default_rng([0, 1]), 32,
+                                       jdlrm.dlrm_tiny_config())[1]
+    assert _sha(*ids) == _sha(*(np.asarray(i) for i in jids))

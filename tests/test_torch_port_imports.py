@@ -65,8 +65,14 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import horovod_tpu_torch.models.dlrm\n"
         "import horovod_tpu_torch.serve, horovod_tpu_torch.serve.replica\n"
         "import horovod_tpu_torch.serve.server\n"
+        "import horovod_tpu_torch.spark, horovod_tpu_torch.spark.torch\n"
+        "import horovod_tpu_torch.spark.params, horovod_tpu_torch.spark.store\n"
+        "import horovod_tpu_torch.spark.util, horovod_tpu_torch.spark.backend\n"
+        "import horovod_tpu_torch.spark.estimator\n"
+        "import horovod_tpu_torch.ray, horovod_tpu_torch.ray.runner\n"
+        "import horovod_tpu_torch.ray.elastic, horovod_tpu_torch.mxnet\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
+        f"{FORBIDDEN!r} + ('pyspark', 'ray', 'mxnet', 'cloudpickle'))\n"
         "print(','.join(bad))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
@@ -150,6 +156,20 @@ def test_sparse_and_serve_export_the_jax_names():
     import horovod_tpu_torch.sparse
     for jmod, tmod in ((horovod_tpu.sparse, horovod_tpu_torch.sparse),
                        (horovod_tpu.serve, horovod_tpu_torch.serve)):
+        assert tmod.__all__ == jmod.__all__
+        for name in tmod.__all__:
+            assert getattr(tmod, name) is not None, name
+
+
+def test_spark_and_ray_export_the_jax_names():
+    """``mxnet`` has no ``__all__`` in either package: any attribute of
+    the descope stub raises (``tests/test_torch_port_ray.py``)."""
+    import horovod_tpu.ray
+    import horovod_tpu.spark
+    import horovod_tpu_torch.ray
+    import horovod_tpu_torch.spark
+    for jmod, tmod in ((horovod_tpu.spark, horovod_tpu_torch.spark),
+                       (horovod_tpu.ray, horovod_tpu_torch.ray)):
         assert tmod.__all__ == jmod.__all__
         for name in tmod.__all__:
             assert getattr(tmod, name) is not None, name

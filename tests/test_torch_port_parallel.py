@@ -24,6 +24,7 @@ import logging
 import math
 import os
 import tempfile
+from functools import partial
 
 import numpy as np
 import pytest
@@ -230,6 +231,60 @@ def test_placements_follow_the_jax_rules(model, axes, fsdp,
         want = _expected_torch_spec(key, sharding.spec,
                                     len(got[name].spec))
         assert tuple(got[name].spec) == want, (name, sharding.spec)
+
+
+@pytest.fixture(scope="module")
+def resnet50_params():
+    from horovod_tpu.models import resnet as jresnet
+    model = jresnet.ResNet50(num_classes=1000)
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False))
+    return shapes["params"]
+
+
+@pytest.mark.parametrize("axes,fsdp", [({"fsdp": 2, "tp": 2}, "fsdp"),
+                                       ({"fsdp": 4}, "fsdp"),
+                                       ({"dp": 4}, None)],
+                         ids=["fsdp2_tp2", "fsdp4", "dp4"])
+def test_resnet_placements_follow_the_jax_rules(axes, fsdp,
+                                                resnet50_params):
+    """``resnet_partition_rules`` on the port's ResNet-50 (built on the
+    ``meta`` device), as a module and as a state dict with
+    ``resnet.flax_path``, against the JAX rules on flax's: every
+    parameter named by the converter's map, conv kernels HWIO as weights
+    OIHW, the head's kernel ``[in, out]`` as its weight ``[out, in]``;
+    the state dict's BN statistics replicated."""
+    from horovod_tpu_torch.models import resnet as tresnet
+    jm = jmesh.build_mesh(dict(axes), devices=jax.devices()[:4])
+    jspecs = _flat(jsharding.infer_shardings(
+        resnet50_params, jm, jsharding.resnet_partition_rules(fsdp=fsdp)))
+    with torch.device("meta"):
+        tm = tresnet.ResNet50(device="meta")
+    rules = tsharding.resnet_partition_rules(fsdp=fsdp)
+    got = tsharding.infer_shardings(tm, axes, rules)
+    got_sd = tsharding.infer_shardings(
+        tm.state_dict(), axes, rules,
+        flax_path=partial(tresnet.flax_path, block="BottleneckResNetBlock"))
+    leaves = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+    ndims = {k: len(v.shape) for k, v in _flat(resnet50_params).items()}
+    want = {}
+    for key, sharding in jspecs.items():
+        *mod, leaf = key.split("/")
+        spec = list(sharding.spec) + [None] * 4
+        if leaf == "kernel" and ndims[key] == 4:
+            spec = (spec[3], spec[2], spec[0], spec[1])
+        elif leaf == "kernel":
+            spec = (spec[1], spec[0])
+        else:
+            spec = tuple(spec[:ndims[key]])
+        want[f"{tresnet._module_path(mod)}.{leaves[leaf]}"] = tuple(spec)
+    assert len(want) == 161
+    assert {n: tuple(s.spec) for n, s in got.items()} == want
+    assert want["head.weight"] == ((None, fsdp) if fsdp else (None, None))
+    stats = {n: (None,) for n, _ in tm.named_buffers()}
+    assert len(stats) == 2 * 53
+    assert {n: tuple(s.spec) for n, s in got_sd.items()} == {**want,
+                                                              **stats}
 
 
 def test_vocab_sharding_follows_fit_spec():
