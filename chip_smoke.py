@@ -29,8 +29,16 @@ The two-rank phase starts two fresh worker processes of this script
 Both use the one card, so CUDA tensors cross ranks over gloo, staged
 through host memory (NCCL refuses two ranks on one device).  Each worker
 also reads its own ``/metrics`` endpoint, signed with the job secret and
-unsigned, before it shuts down.  The launch pins ``HOROVOD_TPU_NATIVE=1``
-and rank 0 must host the native coordinator; the coordinator phase
+unsigned, before it shuts down.  In that launch each worker also
+reduces GPT-2 small's 196 fp32 gradients on the card through Keras's
+torch-backend reducer (``horovod_tpu_torch._keras._torch_grads_fn``) and
+through ``grouped_allreduce`` with the same op and scales (``Average``,
+``gradient_predivide_factor=2.0``, ``Compression.fp16``): bit-equal,
+fp32 on ``cuda:0``, through the fusion kernel (the ``keras_reducer``
+line; the ``packages`` line says whether Keras and TensorFlow are
+installed, which this check does not need).  The launch pins
+``HOROVOD_TPU_NATIVE=1`` and rank 0 must host the native coordinator;
+the coordinator phase
 repeats it with ``HOROVOD_TPU_NATIVE`` 0, 0, 1 and compares negotiation
 under the two servers.  The elastic and tune_durable phases check that
 rank 0 hosts the server the JAX package's rule gives for their
@@ -101,6 +109,7 @@ import ast
 import concurrent.futures
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -151,6 +160,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 STEPS = 6
 STEPS_2RANK = 4
+KERAS_REDUCER_SEED = 200  # keras_reducer's gradients: seed + rank
 BATCH, SEQ = 8, 1024
 BERT_BATCH, BERT_SEQ = 16, 512    # sharded_train's BERT-base batch
 SOURCES = ("flash_attn_fwd.cu", "fusion_buffer.cu")
@@ -880,15 +890,17 @@ def read_metrics(port: int, secret) -> tuple:
         return e.code, ""
 
 
-def train_2rank_worker():
+def train_2rank_worker(keras_reducer: bool = False):
     """One rank of the two-rank phase (``--train-worker``), started by the
     launcher: GPT-2 small at full width through
     ``hvd.torch.DistributedOptimizer`` (hooks on, bf16 compute, flash
     attention, AdamW), its own seeded tokens, then the eager collectives
-    on CUDA tensors and its own ``/metrics`` (``HOROVOD_METRICS_PORT``),
-    read signed and unsigned.  Reports rank 0's server class, its cache
-    rounds, this rank's uplink frames and collective seconds over the
-    steps.  Prints one ``RESULT {...}`` line."""
+    on CUDA tensors, with ``keras_reducer`` (``--keras-reducer``) the
+    Keras reducer check, and its own ``/metrics``
+    (``HOROVOD_METRICS_PORT``), read signed and unsigned.  Reports rank
+    0's server class, its cache rounds, this rank's uplink frames and
+    collective seconds over the steps.  Prints one ``RESULT {...}``
+    line."""
     wall = {"started": STARTED, "init_begin": time.time()}
     hvd.init()
     wall["init_end"] = time.time()
@@ -956,6 +968,11 @@ def train_2rank_worker():
         digest.update(name.encode())
         digest.update(p.detach().float().cpu().numpy().tobytes())
     checks = eager_checks(rank, size, torch.device("cuda"))
+    # The gradients' shapes in backward order, as
+    # gpt2_small_gradient_shapes() gives them, without a second model.
+    reducer = keras_reducer_check(rank, size, [
+        (name, tuple(p.shape)) for name, p in model.named_parameters()
+        if p.requires_grad][::-1]) if keras_reducer else None
     transport = backend.name
     slot = {"rank": rank, "local_rank": hvd.local_rank(),
             "cross_rank": hvd.cross_rank(),
@@ -974,12 +991,78 @@ def train_2rank_worker():
         "server": server, "expected_server": expected_server(),
         "cache_rounds": rounds,
         "max_memory_allocated": peak, "params_sha256": digest.hexdigest(),
-        "eager": checks, "slot": slot, "wall": wall,
+        "eager": checks, "keras_reducer": reducer, "slot": slot,
+        "wall": wall,
         "rendezvous_port": int(os.environ["HOROVOD_GLOO_RENDEZVOUS_PORT"]),
         "metrics": {"signed": signed, "unsigned": unsigned,
                     "gloo_series": 'hvd_collective_seconds_count'
                                    '{backend="gloo"' in text}}),
           flush=True)
+
+
+def keras_reducer_check(rank: int, size: int, shapes) -> dict:
+    """Keras's torch-backend reducer on the card: GPT-2 small's 196 fp32
+    gradients (``shapes``, in backward order; seeded per rank, on
+    ``cuda:0``, as Keras's torch trainer hands them to ``apply``)
+    through ``horovod_tpu_torch._keras._torch_grads_fn`` and through the
+    torch binding's ``grouped_allreduce`` with the same op and scales,
+    for ``Average``, ``Average`` with ``gradient_predivide_factor=2.0``
+    and ``Compression.fp16``.  Needs no Keras: the reducer takes torch
+    tensors.  Returns, per case, bit-equality and every output's device
+    and dtype; the fusion kernel's packs and unpacks against the plain
+    version's (from zero, over the whole check); and the host ms per
+    call of each route on the ``Average`` case, timed in ABBA order (its
+    first call of each route is the case's check)."""
+    from horovod_tpu_torch import _keras
+    from horovod_tpu_torch.ops.compression import Compression
+    g = torch.Generator(device="cuda").manual_seed(KERAS_REDUCER_SEED + rank)
+    grads = [torch.randn(shape, device="cuda", generator=g)
+             for _, shape in shapes]
+    cases = {"average": (Compression.none, 1.0),
+             "predivide_2": (Compression.none, 2.0),
+             "fp16": (Compression.fp16, 1.0)}
+
+    def keras_route(comp, pre):
+        return _keras._torch_grads_fn(comp, hvd.Average, pre,
+                                      hvd.global_process_set)(grads)
+
+    def binding_route(comp, pre):
+        packed = [comp.compress(t) for t in grads]
+        out = hvd.grouped_allreduce([c for c, _ in packed], op=hvd.Sum,
+                                    prescale_factor=1.0 / pre,
+                                    postscale_factor=pre / size)
+        return [comp.decompress(o, ctx) for o, (_, ctx) in zip(out, packed)]
+
+    def check(got, want):
+        torch.cuda.synchronize()
+        return {"bit_equal": len(got) == len(want) and all(
+                    torch.equal(a, b) for a, b in zip(got, want)),
+                "devices": sorted({str(t.device) for t in got}),
+                "dtypes": sorted({str(t.dtype) for t in got})}
+
+    torch.cuda.synchronize()
+    fb.launches.update({k: 0 for k in fb.launches})
+    fb.plain_calls.update({k: 0 for k in fb.plain_calls})
+    routes = {"keras": keras_route, "binding": binding_route}
+    order = ["keras", "binding", "binding", "keras"]
+    ms, first = {k: [] for k in routes}, {}
+    for route in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = routes[route](*cases["average"])
+        torch.cuda.synchronize()
+        ms[route].append((time.perf_counter() - t0) * 1e3)
+        first.setdefault(route, out)
+        del out
+    checked = {"average": check(first.pop("keras"), first.pop("binding"))}
+    for name in ("predivide_2", "fp16"):
+        checked[name] = check(keras_route(*cases[name]),
+                              binding_route(*cases[name]))
+    return {"tensors": len(grads), "elements": sum(t.numel() for t in grads),
+            "cases": checked, "fusion": dict(fb.launches),
+            "fusion_plain_calls": dict(fb.plain_calls), "order": order,
+            "host_ms_by_call": ms,
+            "host_ms_per_call": {k: statistics.mean(v) for k, v in ms.items()}}
 
 
 def process_tree(pid: int) -> list:
@@ -1038,7 +1121,8 @@ def spawned_walls(out: str) -> dict:
     return spawned
 
 
-def launch_2rank(log_dir: str, native_flag: str) -> dict:
+def launch_2rank(log_dir: str, native_flag: str,
+                 keras_reducer: bool = False) -> dict:
     """``python -m horovod_tpu_torch.runner.launch -np 2 -H localhost:2``
     of this script's ``--train-worker``, with ``HOROVOD_METRICS_PORT=0``
     and ``HOROVOD_TPU_NATIVE=native_flag`` (``1``: a library that does
@@ -1050,7 +1134,8 @@ def launch_2rank(log_dir: str, native_flag: str) -> dict:
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
            "-np", "2", "-H", "localhost:2", "--verbose",
            "--output-filename", log_dir, sys.executable,
-           os.path.abspath(__file__), "--train-worker"]
+           os.path.abspath(__file__), "--train-worker"] + \
+        (["--keras-reducer"] if keras_reducer else [])
     lines, first_result = [], []
     wall0, t0 = time.time(), time.perf_counter()
     proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
@@ -1084,14 +1169,15 @@ def launch_2rank(log_dir: str, native_flag: str) -> dict:
             "first_result_s": first_result[0] if first_result else None}
 
 
-def run_2rank(native_flag: str) -> tuple:
+def run_2rank(native_flag: str, keras_reducer: bool = False) -> tuple:
     """One launch of the two-rank main path with ``HOROVOD_TPU_NATIVE``
-    pinned to ``native_flag``; checks what the workers report, their
+    pinned to ``native_flag`` (and with ``keras_reducer``, the workers'
+    Keras reducer check); checks what the workers report, their
     ``/metrics`` under the job secret, the launcher's capture files and
     that rank 0 hosted the server the JAX package's rule gives.  Returns
     the launch and the workers' results, by rank."""
     with tempfile.TemporaryDirectory() as log_dir:
-        run = launch_2rank(log_dir, native_flag)
+        run = launch_2rank(log_dir, native_flag, keras_reducer)
         out = run["output"]
         if run["returncode"] != 0:
             raise RuntimeError(f"2-rank launch (HOROVOD_TPU_NATIVE="
@@ -1133,9 +1219,44 @@ def run_2rank(native_flag: str) -> tuple:
 
 
 def launch_counts(results) -> dict:
+    """The launch's kernel counts: training and, where it ran, the Keras
+    reducer check."""
+    fusion = 0
+    for r in results:
+        for counted in (r["counts"], r["keras_reducer"]):
+            if counted is not None:
+                fusion += counted["fusion"]["pack"] + \
+                    counted["fusion"]["unpack"]
     return {"flash": sum(r["counts"]["flash"] for r in results),
-            "fusion": sum(r["counts"]["fusion"]["pack"] +
-                          r["counts"]["fusion"]["unpack"] for r in results)}
+            "fusion": fusion}
+
+
+def emit_keras_reducer(results):
+    """The ``keras_reducer`` line, and its gates: every case bit-equal,
+    every output fp32 on ``cuda:0``, the fusion kernel's packs and
+    unpacks above 0 and the plain version's at 0, on both ranks."""
+    by_rank = {r["rank"]: r["keras_reducer"] for r in results}
+    emit("keras_reducer",
+         config="gpt2_small's fp32 gradients on cuda:0, 2 ranks sharing "
+                "one card over gloo; _keras._torch_grads_fn against "
+                "torch.grouped_allreduce, same op and scales",
+         **{k: by_rank[0][k] for k in ("tensors", "elements", "order")},
+         cases={rank: c["cases"] for rank, c in by_rank.items()},
+         fusion={rank: c["fusion"] for rank, c in by_rank.items()},
+         fusion_plain_calls={rank: c["fusion_plain_calls"]
+                             for rank, c in by_rank.items()},
+         host_ms_per_call={rank: c["host_ms_per_call"]
+                           for rank, c in by_rank.items()},
+         host_ms_by_call={rank: c["host_ms_by_call"]
+                          for rank, c in by_rank.items()})
+    for rank, c in by_rank.items():
+        assert c["tensors"] == 196 and c["elements"] == 124439808, c
+        for name, case in c["cases"].items():
+            assert case["bit_equal"], (rank, name, case)
+            assert case["devices"] == ["cuda:0"], (rank, name, case)
+            assert case["dtypes"] == ["torch.float32"], (rank, name, case)
+        assert c["fusion"]["pack"] > 0 and c["fusion"]["unpack"] > 0, c
+        assert c["fusion_plain_calls"] == {"pack": 0, "unpack": 0}, c
 
 
 def coordinator_summary(native_flag: str, run: dict, results) -> dict:
@@ -1161,10 +1282,12 @@ def phase_train_2rank() -> tuple:
     """The main path at two ranks, started by the port's launcher: two
     fresh worker processes, both on this card, so the data plane is gloo,
     with ``HOROVOD_TPU_NATIVE=1``: rank 0 must host the native
-    coordinator.  Emits the ``launcher`` and ``train_2rank`` lines and
+    coordinator.  The workers also run the Keras reducer check.  Emits
+    the ``keras_reducer``, ``launcher`` and ``train_2rank`` lines and
     returns the workers' launch counts and the run's ``coordinator``
     summary."""
-    run, results = run_2rank("1")
+    run, results = run_2rank("1", keras_reducer=True)
+    emit_keras_reducer(results)
     r0 = results[0]
     median = [statistics.median(r["step_ms"][1:]) for r in results]
     launched_by = " ".join(["python"] + run["cmd"][1:7])
@@ -3558,8 +3681,8 @@ def main():
     global CARD
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device is available")
-    if sys.argv[1:] == ["--train-worker"]:
-        train_2rank_worker()
+    if sys.argv[1:2] == ["--train-worker"]:
+        train_2rank_worker(sys.argv[2:] == ["--keras-reducer"])
         return
     if sys.argv[1:] == ["--elastic-worker"]:
         elastic_worker()
@@ -3583,6 +3706,14 @@ def main():
     emit("device", kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+    emit("packages", **{name: importlib.util.find_spec(name) is not None
+                        for name in ("keras", "tensorflow")},
+         note="information only: model.fit, the TF binding and "
+              "KerasEstimator are held against the JAX package on the "
+              "CPU (tests/test_torch_port_keras.py, "
+              "test_torch_port_tensorflow.py, test_torch_port_spark.py); "
+              "here the keras_reducer check runs Keras's torch-backend "
+              "reducer, which needs no Keras")
     t0 = time.perf_counter()
     seconds = {}
 

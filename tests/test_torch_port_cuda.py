@@ -954,3 +954,80 @@ def test_estimator_state_bytes_from_the_card_load_on_the_cpu(cuda,
         if isinstance(v, torch.Tensor)]
     assert len(tensors) == 4                 # weight, bias, 2 momenta
     assert {t.device.type for t in tensors} == {"cpu"}
+
+
+# ---------------------------------------------------------------------------
+# Keras's torch-backend reducer on the card (needs no Keras).
+# ---------------------------------------------------------------------------
+_KERAS_REDUCER_BODY = """
+import json
+import torch
+import horovod_tpu_torch.torch as hvd
+from horovod_tpu_torch import _keras
+from horovod_tpu_torch.ops import fusion_buffer as fb
+from horovod_tpu_torch.ops.compression import Compression
+hvd.init()
+rank, size = hvd.rank(), hvd.size()
+g = torch.Generator(device="cuda").manual_seed(3 + rank)
+grads = [torch.randn(s, device="cuda", generator=g)
+         for s in ((768, 2304), (2304,), (50257, 768), (3, 5))]
+fb.launches.update({k: 0 for k in fb.launches})
+fb.plain_calls.update({k: 0 for k in fb.plain_calls})
+checked = {}
+for name, comp, pre in (("average", Compression.none, 1.0),
+                        ("predivide", Compression.none, 2.0),
+                        ("fp16", Compression.fp16, 1.0)):
+    got = _keras._torch_grads_fn(comp, hvd.Average, pre,
+                                 hvd.global_process_set)(
+        [grads[0], None, grads[1], grads[2], grads[3]])
+    assert got[1] is None
+    got = [got[0]] + got[2:]
+    packed = [comp.compress(t) for t in grads]
+    want = [comp.decompress(o, ctx) for o, (_, ctx) in zip(
+        hvd.grouped_allreduce([c for c, _ in packed], op=hvd.Sum,
+                              prescale_factor=1.0 / pre,
+                              postscale_factor=pre / size), packed)]
+    checked[name] = all(
+        a.device == b.device == t.device and a.dtype == t.dtype and
+        torch.equal(a, b) for a, b, t in zip(got, want, grads))
+print("RESULT " + json.dumps({
+    "rank": rank, "checked": checked, "fusion": dict(fb.launches),
+    "plain": dict(fb.plain_calls)}), flush=True)
+hvd.shutdown()
+"""
+
+
+def _keras_reducer_results(out):
+    import json
+    res = {}
+    for line in out.splitlines():
+        _, _, rest = line.partition("<stdout>:")
+        rest = rest or line
+        if rest.startswith("RESULT "):
+            r = json.loads(rest[len("RESULT "):])
+            res[r["rank"]] = r
+    return res
+
+
+@pytest.mark.parametrize("nproc", [1, 2])
+def test_keras_torch_reducer_on_the_card(cuda, tmp_path, nproc):
+    """``_keras._torch_grads_fn`` on CUDA gradients, in a world of one and
+    at two ranks sharing the card: bit-equal to ``grouped_allreduce`` with
+    the same op and scales, outputs on the card in the gradients' dtype,
+    never packed by the fusion kernel's plain version (a world of one
+    scales without packing; two ranks pack with the kernel)."""
+    from test_torch_port_multiproc import launcher_env, run_port_launcher
+    script = tmp_path / "worker.py"
+    script.write_text(_KERAS_REDUCER_BODY)
+    rc, out = run_port_launcher(
+        ["-np", str(nproc), "-H", f"localhost:{nproc}", sys.executable,
+         str(script)], launcher_env(), timeout=300)
+    assert rc == 0, out[-3000:]
+    res = _keras_reducer_results(out)
+    assert sorted(res) == list(range(nproc)), out[-3000:]
+    for r in res.values():
+        assert r["checked"] == {"average": True, "predivide": True,
+                                "fp16": True}, r
+        if nproc > 1:
+            assert r["fusion"]["pack"] > 0 and r["fusion"]["unpack"] > 0, r
+        assert r["plain"] == {"pack": 0, "unpack": 0}, r

@@ -8,6 +8,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "horovod_tpu")
 
@@ -233,3 +235,88 @@ def test_native_imports_and_builds_without_torch():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
+
+
+# Keras 3.13 imports jax itself where it is installed
+# (keras/src/callbacks/orbax_checkpoint.py, in a try), so these
+# subprocesses hide the forbidden packages: an import of one by the port
+# fails there, while Keras's own optional import is skipped.
+_HIDDEN = ("import sys\n"
+           f"for name in {FORBIDDEN!r}:\n"
+           "    sys.modules[name] = None\n")
+
+
+def _import_report(code, env_extra):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(env_extra, PYTHONPATH=REPO)
+    code = (_HIDDEN + code +
+            "bad = sorted(m for m, v in sys.modules.items() if v is not None"
+            f" and m.split('.')[0] in {FORBIDDEN!r})\n"
+            "print('BAD=' + ','.join(bad))\n")
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=240)
+
+
+@pytest.mark.parametrize("module,env", [
+    ("horovod_tpu_torch.keras", {"KERAS_BACKEND": "torch"}),
+    ("horovod_tpu_torch.tensorflow", {}),
+    ("horovod_tpu_torch.spark.keras", {}),
+])
+def test_keras_and_tensorflow_bindings_load_no_jax(module, env):
+    """Each binding in its own process; the TF one with its alias
+    ``tensorflow.keras``, the Keras one checks its backend."""
+    code = f"import {module}\n"
+    if module.endswith("tensorflow"):
+        code += "import horovod_tpu_torch.tensorflow.keras\n"
+    if module.endswith(".keras") and env:
+        code += "import keras\nassert keras.backend.backend() == 'torch'\n"
+    out = _import_report(code, env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "BAD=", out.stdout
+
+
+def test_keras_impl_imports_without_keras():
+    """``horovod_tpu_torch._keras`` imports Keras inside its functions."""
+    out = _import_report("sys.modules['keras'] = None\n"
+                         "import horovod_tpu_torch._keras\n", {})
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == "BAD=", out.stdout
+
+
+def test_static_scan_covers_the_keras_and_tensorflow_bindings():
+    sources = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("_keras/__init__.py", "_keras/callbacks.py",
+                "keras/__init__.py", "keras/callbacks.py",
+                "keras/elastic.py", "tensorflow/__init__.py",
+                "tensorflow/graph_ops.py", "tensorflow/sync_batch_norm.py",
+                "tensorflow/elastic.py", "tensorflow/keras/__init__.py",
+                "spark/keras.py"):
+        assert os.path.join("horovod_tpu_torch", rel) in sources, rel
+
+
+def test_keras_and_tensorflow_export_the_jax_names():
+    """``keras`` and ``tensorflow`` (and its ``keras`` alias) have the JAX
+    package's ``__all__``; ``spark.keras`` has none in either package,
+    and defines the same public classes and functions."""
+    import horovod_tpu.keras
+    import horovod_tpu.spark.keras
+    import horovod_tpu.tensorflow
+    import horovod_tpu_torch.keras
+    import horovod_tpu_torch.spark.keras
+    import horovod_tpu_torch.tensorflow
+    import horovod_tpu_torch.tensorflow.keras
+    for jmod, tmod in ((horovod_tpu.keras, horovod_tpu_torch.keras),
+                       (horovod_tpu.tensorflow,
+                        horovod_tpu_torch.tensorflow)):
+        assert tmod.__all__ == jmod.__all__
+        for name in tmod.__all__:
+            assert getattr(tmod, name) is not None, name
+    assert horovod_tpu_torch.tensorflow.keras.DistributedOptimizer is \
+        horovod_tpu_torch.keras.DistributedOptimizer
+
+    def public(mod):
+        return {n for n, v in vars(mod).items() if not n.startswith("_")
+                and getattr(v, "__module__", None) == mod.__name__}
+    jmod, tmod = horovod_tpu.spark.keras, horovod_tpu_torch.spark.keras
+    assert not hasattr(jmod, "__all__") and not hasattr(tmod, "__all__")
+    assert public(tmod) == public(jmod) == {"KerasEstimator", "KerasModel"}

@@ -40,6 +40,43 @@ def cache_stats():
     if hasattr(srv, "cache_stats"):
         return tuple(srv.cache_stats())
     return srv.stats["fast_rounds"], srv.stats["full_rounds"]
+
+def _under(lock_wait, what, deadline_s=60.0):
+    import threading
+    t = threading.Thread(target=lock_wait, daemon=True)
+    t.start()
+    t.join(deadline_s)
+    if t.is_alive():
+        raise AssertionError(f"{what} still held after {deadline_s} s")
+
+# Returns once rank 0's server has counted every round whose response
+# this rank holds.  Both servers broadcast a round and then count it
+# (cache rounds, byte history) under their round lock, so a round's
+# response can reach a rank before its count lands.  The native server's
+# stall_report() takes that lock (coordinator.cc StallReport), and the
+# Python server's is its _lock.
+def settle():
+    srv = ctrl.server
+    if hasattr(srv, "cache_stats"):
+        _under(srv.stall_report, "the native server's round lock")
+    else:
+        def wait():
+            with srv._lock:
+                pass
+        _under(wait, "the Python server's round lock")
+
+# ctrl.stats[key] for an uplink frame kind once the frame in flight, if
+# any, is counted: a worker counts a frame under its send lock just
+# after the send returns, so the frame's response can reach this rank
+# before the count lands.
+def sent(key):
+    got = {}
+
+    def read():
+        with ctrl._send_lock:
+            got["n"] = ctrl.stats[key]
+    _under(read, "the worker's send lock")
+    return got["n"]
 """
 
 # Written by every rank at the end of a body: its outputs, and on rank 0
@@ -55,17 +92,10 @@ def enc(v):
     return v
 rec = {"out": {k: enc(v) for k, v in out.items()}}
 if RANK == 0:
-    import time
     rec["server"] = [type(ctrl.server).__module__,
                      type(ctrl.server).__name__]
-    # Both servers count a round just after they broadcast it, so the
-    # last round's count may land after its response: read until two
-    # reads 0.3 s apart agree.
-    stats, prev = cache_stats(), None
-    while stats != prev:
-        time.sleep(0.3)
-        stats, prev = cache_stats(), stats
-    rec["cache_stats"] = list(stats)
+    settle()
+    rec["cache_stats"] = list(cache_stats())
 with open(os.path.join(os.environ["RESULT_DIR"], f"{PKG}-{RANK}.json"),
           "w") as f:
     json.dump(rec, f)
@@ -177,7 +207,7 @@ for rep in range(6):
     ys = T.grouped_allreduce(xs, op=T.Sum, name="gg")
     for i, y in enumerate(ys):
         assert torch.equal(y, torch.full((8,), 2.0 * (i + 1)))
-ch_before = ctrl.stats["ch_frames"]
+ch_before = sent("ch_frames")
 # Member 1 changes shape; members 0 and 2 still match their cached
 # signatures but must be demoted with it.
 xs2 = [torch.full((8,), 1.0), torch.full((4,), 2.0), torch.full((8,), 3.0)]
@@ -185,11 +215,11 @@ ys = T.grouped_allreduce(xs2, op=T.Sum, name="gg")
 out["demoted"] = list(ys)
 assert [y.tolist() for y in ys] == [[2.0] * 8, [4.0] * 4, [6.0] * 8]
 # No cache bits may have been sent for the demoted round.
-assert ctrl.stats["ch_frames"] == ch_before, ctrl.stats
+assert sent("ch_frames") == ch_before, ctrl.stats
 for rep in range(3):
     ys = T.grouped_allreduce(xs2, op=T.Sum, name="gg")
     assert torch.equal(ys[1], torch.full((4,), 4.0))
-assert ctrl.stats["ch_frames"] > ch_before, ctrl.stats
+assert sent("ch_frames") > ch_before, ctrl.stats
 out["resumed"] = list(ys)
 """),
     "stall_attribution": (2, {"HOROVOD_STALL_CHECK_TIME_SECONDS": "1"}, """
@@ -240,11 +270,11 @@ y = T.allreduce(torch.full((16,), float(RANK)), op=T.Sum, name="t")
 assert torch.equal(y, torch.full((16,), 6.0))
 # The degraded round renegotiated (RS frame), not CB-only.
 assert ctrl.stats["rs_frames"] >= rs_before + 1, ctrl.stats
-ch_before = ctrl.stats["ch_frames"]
+ch_before = sent("ch_frames")
 for step in range(5):
     y = T.allreduce(torch.full((16,), float(RANK)), op=T.Sum, name="t")
     assert torch.equal(y, torch.full((16,), 6.0))
-assert ctrl.stats["ch_frames"] >= ch_before + 4, ctrl.stats
+assert sent("ch_frames") >= ch_before + 4, ctrl.stats
 out["y"] = y
 """),
     "tombstone_churn_nproc4": (4, {"HOROVOD_CACHE_CAPACITY": "2"}, """
@@ -261,16 +291,16 @@ for rep in range(6):
     ys = T.grouped_allreduce(xs, op=T.Sum, name="gg")
     for i, y in enumerate(ys):
         assert torch.equal(y, torch.full((8,), 4.0 * (i + 1)))
-ch_before = ctrl.stats["ch_frames"]
+ch_before = sent("ch_frames")
 xs2 = [torch.full((8,), 1.0), torch.full((4,), 2.0), torch.full((8,), 3.0)]
 ys = T.grouped_allreduce(xs2, op=T.Sum, name="gg")
 assert [y.tolist() for y in ys] == [[4.0] * 8, [8.0] * 4, [12.0] * 8]
 out["demoted"] = list(ys)
-assert ctrl.stats["ch_frames"] == ch_before, ctrl.stats
+assert sent("ch_frames") == ch_before, ctrl.stats
 for rep in range(3):
     ys = T.grouped_allreduce(xs2, op=T.Sum, name="gg")
     assert torch.equal(ys[1], torch.full((4,), 8.0))
-assert ctrl.stats["ch_frames"] > ch_before, ctrl.stats
+assert sent("ch_frames") > ch_before, ctrl.stats
 """),
 }
 
@@ -281,6 +311,7 @@ for i, n in enumerate((256, 65536)):
     out[f"rr{i}"] = T.allreduce(torch.ones(n), op=T.Sum, name=f"rr.{i}")
     T.barrier()
 if RANK == 0:
+    settle()
     vals = [v for v in ctrl.server.drain_round_bytes() if v > 0]
     # Both payload sizes appear verbatim in the history.
     assert 256 * 4 in vals and 65536 * 4 in vals, vals

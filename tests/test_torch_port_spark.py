@@ -10,6 +10,14 @@
   each direction (each package resumes the other's Store checkpoint),
   both equal to a serial replay of the uninterrupted run.  The two
   packages' fits run side by side.
+* ``KerasEstimator`` at two ranks on ``LocalBackend`` (``device="cpu"``
+  in the port; the JAX package's workers also on Keras's torch backend)
+  against the JAX ``KerasEstimator`` on the same DataFrame and model
+  (``tests/test_spark_estimator.py::
+  test_keras_estimator_fit_transform_resume``): per-epoch losses,
+  ``transform`` and the resume from epoch 2 to 4 (each package resumes
+  the other's Store checkpoint) are equal.  Without a card and with
+  ``device=None`` it raises before writing any data.
 * The in-process ``memory://`` case, a resume with momentum (the port's
   trainer keeps the optimizer state the JAX one drops), the raise without
   a card, ``spark.run`` under a fake ``pyspark``, and ``LocalBackend``
@@ -32,6 +40,7 @@ import torch
 import horovod_tpu.spark as jspark
 from horovod_tpu.spark import backend as jbackend
 from horovod_tpu.spark import estimator as jestimator
+from horovod_tpu.spark import keras as jkeras
 from horovod_tpu.spark import store as jstore
 from horovod_tpu.spark import torch as jtorch
 from horovod_tpu.spark import util as jutil
@@ -39,6 +48,7 @@ from horovod_tpu.spark import util as jutil
 import horovod_tpu_torch.spark as tspark
 from horovod_tpu_torch.spark import backend as tbackend
 from horovod_tpu_torch.spark import estimator as testimator
+from horovod_tpu_torch.spark import keras as tkeras
 from horovod_tpu_torch.spark import store as tstore
 from horovod_tpu_torch.spark import torch as ttorch
 from horovod_tpu_torch.spark import util as tutil
@@ -592,3 +602,121 @@ def test_local_backend_names_a_failed_rank_with_its_output():
     with pytest.raises(RuntimeError, match=r"worker\(s\) \[1\] failed"
                        r"(.|\n)*rank 1 gives up"):
         tbackend.LocalBackend(2, verbose=1, timeout=60).run(fn)
+
+
+# ---------------------------------------------------------------------------
+# KerasEstimator: two ranks on LocalBackend, both packages side by side
+# ---------------------------------------------------------------------------
+
+def _keras_estimator(pkg, model, store, epochs, **kw):
+    kwargs = dict(model=model, optimizer="sgd", loss="mse",
+                  feature_cols=["x"], label_cols=["y"], store=store,
+                  num_proc=2, epochs=epochs, batch_size=8,
+                  run_id="kerasrun", verbose=0, **kw)
+    if pkg is tkeras:
+        kwargs.setdefault("device", "cpu")
+    return pkg.KerasEstimator(**kwargs)
+
+
+@pytest.fixture(scope="module")
+def keras_fits():
+    """JAX and port fits of 2 epochs side by side (every worker on
+    Keras's torch backend), then each package resumes a copy of the
+    other's Store to epoch 4."""
+    keras = pytest.importorskip("keras")
+    root = tempfile.mkdtemp(prefix="torch_port_spark_keras_")
+    saved = {k: os.environ.get(k) for k in ("PYTHONPATH", "KERAS_BACKEND")}
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, saved["PYTHONPATH"]) if p)
+    # The JAX package's workers take the driver's environment; the
+    # port's set the torch backend themselves.
+    os.environ["KERAS_BACKEND"] = "torch"
+    try:
+        model = keras.Sequential([keras.layers.Input(shape=(1,)),
+                                  keras.layers.Dense(1)])
+        model.set_weights([np.full((1, 1), 0.25, np.float32),
+                           np.full((1,), -0.5, np.float32)])
+        df = _df(64)
+        stores = {name: mod.FilesystemStore(os.path.join(root, name))
+                  for name, mod in (("jax", jstore), ("port", tstore))}
+        fits = _both(
+            lambda: _keras_estimator(jkeras, model, stores["jax"],
+                                     2).fit(df),
+            lambda: _keras_estimator(tkeras, model, stores["port"],
+                                     2).fit(df))
+        copies = {}
+        for name in stores:
+            shutil.copytree(os.path.join(root, name),
+                            os.path.join(root, name + "_copy"))
+            copies[name] = (jstore if name == "jax" else tstore) \
+                .FilesystemStore(os.path.join(root, name + "_copy"))
+        resumed = _both(
+            lambda: _keras_estimator(jkeras, None, copies["port"],
+                                     4).fit_on_prepared_data(),
+            lambda: _keras_estimator(tkeras, None, copies["jax"],
+                                     4).fit_on_prepared_data())
+        yield {"df": df, "jax": fits[0], "port": fits[1],
+               "jax_resumed": resumed[0], "port_resumed": resumed[1]}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def test_keras_estimator_fit_matches_jax(keras_fits):
+    """The fit, held to the JAX package's with equal losses: both run
+    the same Keras steps, and at two ranks an average of fp32 gradients
+    rounds the same way on either data plane."""
+    j, t = keras_fits["jax"], keras_fits["port"]
+    assert t.start_epoch == j.start_epoch == 0
+    assert len(t.history["loss"]) == 2
+    assert t.history == j.history
+    for got, want in zip(t.getModel().get_weights(),
+                         j.getModel().get_weights()):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_keras_estimator_transform_matches_jax(keras_fits):
+    j, t = keras_fits["jax"], keras_fits["port"]
+    head = keras_fits["df"].head(8)
+    tout, jout = t.transform(head), j.transform(head)
+    assert list(tout.columns) == list(jout.columns) == ["x", "y",
+                                                        "y__output"]
+    np.testing.assert_array_equal(np.asarray(tout["y__output"].tolist()),
+                                  np.asarray(jout["y__output"].tolist()))
+
+
+def test_keras_estimators_resume_each_others_checkpoint(keras_fits):
+    j4, t4 = keras_fits["jax_resumed"], keras_fits["port_resumed"]
+    for m in (j4, t4):
+        assert m.start_epoch == 2
+        assert len(m.history["loss"]) == 2
+    assert t4.history == j4.history
+    for got, want in zip(t4.getModel().get_weights(),
+                         j4.getModel().get_weights()):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_keras_estimator_without_a_card_raises_before_any_data(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    store = tstore.FilesystemStore(str(tmp_path))
+
+    class NoRun(tbackend.Backend):
+        def num_processes(self):
+            return 2
+
+        def run(self, fn, args=(), extra_env=None):
+            raise AssertionError("a worker started")
+
+    est = tkeras.KerasEstimator(
+        model=None, optimizer="sgd", loss="mse", feature_cols=["x"],
+        label_cols=["y"], store=store, backend=NoRun(), epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est.fit(_df())
+    assert not store.exists(store.get_train_data_path())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est.fit_on_prepared_data()
