@@ -12,8 +12,12 @@ runs the reference's ResNet-50 synthetic benchmark in a world of one and
 at two ranks, runs ring and Ulysses attention at GPT-2 small's
 attention widths and the pipeline x expert-parallel step over four
 ranks, trains DLRM-tiny at two ranks while a replica on the card
-serves its durable commits over HTTP, and fits the MNIST CNN at two
-ranks through the Spark estimator API and resumes it from its Store.
+serves its durable commits over HTTP, fits the MNIST CNN at two
+ranks through the Spark estimator API and resumes it from its Store,
+and launches the user's entry points: the Adasum BERT-large pretraining
+example and the PyTorch synthetic benchmark from
+``horovod_tpu_torch/examples/``, and an upstream Horovod script through
+the port's ``horovod`` alias.
 
     python3 chip_smoke.py
 
@@ -103,6 +107,17 @@ per-epoch loss of both ranks and the parameters after each fit must
 equal a replay of both ranks' batches in this process, the fitted
 model's predictions on 256 held-out rows its forward, and each rank's
 gradients must go through the fusion kernel.
+
+The examples phase launches, from a temporary directory and with this
+checkout on ``PYTHONPATH``, ``python -m horovod_tpu_torch.runner.launch
+-np 2 -H localhost:2`` of three scripts: ``adasum/adasum_bert_pretrain.py``
+at BERT-large's published widths with the flash kernel (seq 128, batch
+8 per rank, 3 steps), whose rank 0's final parameters must equal a
+one-process oracle's (each rank's local AdamW step, the deltas merged by
+the plain Adasum formula) within ``ADASUM_PARAM_ATOL``;
+``pytorch/pytorch_synthetic_benchmark.py`` (batch 32, its stand-in CNN);
+and an upstream-style ``import horovod.torch as hvd`` script, which
+must get the port, load no JAX and reduce a CUDA tensor exactly.
 """
 
 import ast
@@ -163,6 +178,8 @@ STEPS_2RANK = 4
 KERAS_REDUCER_SEED = 200  # keras_reducer's gradients: seed + rank
 BATCH, SEQ = 8, 1024
 BERT_BATCH, BERT_SEQ = 16, 512    # sharded_train's BERT-base batch
+ADASUM_BATCH, ADASUM_SEQ = 8, 128  # the examples phase's BERT-large batch
+BERT_LARGE_BH = ADASUM_BATCH * 16  # its attention calls: 16 heads a row
 SOURCES = ("flash_attn_fwd.cu", "fusion_buffer.cu")
 FUSION_THRESHOLD = 64 * 1024 * 1024  # HOROVOD_FUSION_THRESHOLD's default
 WORKER_TIMEOUT_S = 600
@@ -366,6 +383,9 @@ def phase_kernels() -> dict:
               bf16, True, 3e-2, None),
              ("bert_base_sharded", BERT_BATCH // 2 * heads // 2, BERT_SEQ,
               BERT_SEQ, hd, bf16, False, 3e-2, None),
+             # The examples phase's BERT-large: 8 x 16 heads per layer.
+             ("bert_large", BERT_LARGE_BH, ADASUM_SEQ, ADASUM_SEQ, hd, bf16,
+              False, 3e-2, None),
              ("wgmma_noncausal_1000", 4, 1000, 1000, 64, bf16, False, 3e-2,
               None),
              ("wgmma_fp16_d128_1000x777", 2, 1000, 777, 128, fp16, True,
@@ -420,7 +440,8 @@ def phase_kernels() -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOP_PER_S * 1e3
     main_path = {n: errors[n] for n in ("gpt2_small", "gpt2_small_sharded",
-                                        "bert_base_sharded")}
+                                        "bert_base_sharded", "bert_large")}
+    bert_large = bert_large_timing()
     row = {"name": "flash_attn_fwd", "route": "cuda",
            "source": "horovod_tpu_torch/kernels/flash_attn_fwd.cu",
            "replaces": "horovod_tpu/ops/pallas_attention.py:40",
@@ -429,14 +450,51 @@ def phase_kernels() -> dict:
            "ms": ms, "earlier_ms": earlier_ms, "plain_ms": plain_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": library_ms}
+           "library_ms": library_ms, "bert_large": bert_large}
     emit("kernels", max_abs_err=errors, body=bodies,
          shape=[BATCH, SEQ, heads, d], dtype="bfloat16", causal=True,
          order=order, runs_ms=runs, wgmma_ms=ms, mma_ms=earlier_ms,
          sdpa_ms=library_ms, plain_ms=plain_ms,
          host_us_per_call=host_us, bytes=nbytes, flops=flops,
-         bound_ms=row["bound_ms"], bound_by=row["bound_by"])
+         bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+         bert_large=bert_large)
     return row
+
+
+def bert_large_timing() -> dict:
+    """The wrapper (wgmma body), sdpa and the plain version at
+    BERT-large's per-layer shape in the examples phase, ``[8 x 16, 128,
+    64]`` bf16, non-causal, timed in turns; the bound as for the GPT
+    shape (every (q, k) pair unmasked)."""
+    bh, sq, d = BERT_LARGE_BH, ADASUM_SEQ, 64
+    q, k, v = qkv(bh, sq, sq, d, torch.bfloat16, seed=21)
+    scale = d ** -0.5
+    q4, k4, v4 = (t.view(ADASUM_BATCH, bh // ADASUM_BATCH, sq, d)
+                  for t in (q, k, v))
+    timed = {
+        "wgmma": lambda: fa.flash_attention_cuda(q, k, v, scale, False),
+        "sdpa": lambda: F.scaled_dot_product_attention(q4, k4, v4)}
+    order = ["wgmma", "sdpa", "sdpa", "wgmma"]
+    runs = {name: [] for name in timed}
+    for name in order:
+        runs[name].append(median_ms(timed[name], launches=20))
+    got = fa.flash_attention_cuda(q, k, v, scale, False)
+    ref = fa.flash_attention_reference(q, k, v, scale, False)
+    plain_ms = median_ms(
+        lambda: fa.flash_attention_reference(q, k, v, scale, False),
+        launches=2, rounds=3)
+    nbytes = 4 * bh * sq * d * q.element_size()
+    flops = 4 * d * bh * sq * sq
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / BF16_FLOP_PER_S * 1e3
+    return {"shape": [bh, sq, d], "dtype": "bfloat16", "causal": False,
+            "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+            "order": order, "runs_ms": runs,
+            "ms": statistics.mean(runs["wgmma"]),
+            "library_ms": statistics.mean(runs["sdpa"]),
+            "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def phase_model_parity():
@@ -1900,9 +1958,9 @@ def events(reports: dict, event: str) -> dict:
             for r, evs in reports.items()}
 
 
-def start_launcher(cmd, env):
+def start_launcher(cmd, env, cwd: str = REPO):
     lines = []
-    proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
+    proc = subprocess.Popen(cmd, env=env, cwd=cwd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
                             start_new_session=True)
 
@@ -3677,6 +3735,291 @@ def phase_spark_estimator() -> dict:
         for f in fits for rep in f["reports"])}
 
 
+# ---------------------------------------------------------------------------
+# examples: the user's entry points (the examples and the `horovod` alias)
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(REPO, "horovod_tpu_torch", "examples")
+ADASUM_STEPS = 3            # BERT-large steps; the median leaves step 0 out
+ADASUM_LR = 1e-4            # the example's default, AdamW(weight_decay=1e-4)
+# The parameters after the last step against the one-process oracle's
+# (max abs): above the gap between the oracle's last merge with its
+# dot products in fp32 (as the runtime takes them for fp32 deltas) and
+# in fp64, below the gap of a last merge that averaged the deltas.
+ADASUM_PARAM_ATOL = 1e-6
+EXAMPLES_TIMEOUT_S = 600
+BENCH_EXAMPLE_BATCH = 32
+
+# An upstream Horovod script, word for word what a user of upstream
+# writes, plus the checks: it must reach the port through the alias.
+ALIAS_SCRIPT = """
+import json, sys
+import torch
+import horovod.torch as hvd
+
+hvd.init()
+import horovod_tpu_torch.torch
+x = torch.arange(8, dtype=torch.float32, device="cuda") * (hvd.rank() + 1)
+y = hvd.allreduce(x, op=hvd.Sum, name="alias.x")
+want = torch.arange(8, dtype=torch.float32, device="cuda") * 3
+print("RESULT " + json.dumps({
+    "rank": hvd.rank(), "size": hvd.size(),
+    "alias_is_port": hvd is horovod_tpu_torch.torch,
+    "horovod_file": sys.modules["horovod"].__file__,
+    "jax_loaded": sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                                "optax", "horovod_tpu")),
+    "device": str(y.device), "exact": bool(torch.equal(y, want)),
+    "result": y.tolist()}), flush=True)
+"""
+
+
+def launch_example(args, np_: int, cwd: str, phase: str) -> str:
+    """``python -m horovod_tpu_torch.runner.launch -np N -H localhost:N
+    python <args>`` from ``cwd``, with this checkout on ``PYTHONPATH`` (so
+    the repository root, whose ``horovod/`` is the JAX package's alias,
+    is on the workers' path too); returns the launcher's output and
+    raises unless it exits 0 within ``EXAMPLES_TIMEOUT_S``."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+           "-np", str(np_), "-H", f"localhost:{np_}", sys.executable] + args
+    proc, lines, reader = start_launcher(
+        cmd, dict(os.environ, PYTHONPATH=REPO), cwd)
+    try:
+        proc.wait(timeout=EXAMPLES_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        kill_tree(proc.pid)
+        proc.wait()
+    reader.join(timeout=30)
+    out = "".join(lines)
+    if proc.returncode != 0:
+        print(out[-20000:], flush=True)
+        raise RuntimeError(f"{phase}: the launcher exited {proc.returncode}")
+    return out
+
+
+def rank_stdout(out: str, rank: int) -> list:
+    """Rank ``rank``'s standard output lines, the prefix stripped."""
+    tag = f"[{rank}]<stdout>:"
+    return [line[len(tag):] for line in out.splitlines()
+            if line.startswith(tag)]
+
+
+def adasum_oracle(model_state: dict) -> dict:
+    """The example's run in one process: from the weights every rank
+    broadcast (``BertForMaskedLM(bert_large_config(attention_impl=
+    "flash"), seed=0)``), each rank's local AdamW step on its own batch
+    (``make_bert_batch`` seeded by rank), with its own AdamW state, then
+    the two deltas of every tensor merged by the plain Adasum formula
+    (``ops/adasum.py``'s ``merge``, one segment, fp32 dot products as
+    the runtime takes them for fp32 deltas), ``ADASUM_STEPS`` times.
+    Returns the losses, the gap to ``model_state`` (rank 0's final
+    parameters), and the two gaps that bracket the gate: the last merge
+    with fp64 dot products (rounding), and the last merge's deltas
+    averaged (the fault)."""
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import bert
+    from horovod_tpu_torch.ops import adasum
+    cfg = bert.bert_large_config(attention_impl="flash")
+    model = bert.BertForMaskedLM(cfg, seed=0)
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    batches = [{k: v.cuda() for k, v in training.make_bert_batch(
+        ADASUM_BATCH, ADASUM_SEQ, cfg.vocab_size, seed=r).items()}
+        for r in range(2)]
+    opts = [torch.optim.AdamW(params, lr=ADASUM_LR, weight_decay=1e-4)
+            for _ in range(2)]
+
+    def merged(d0, d1, acc):
+        n = d0.numel()
+        return adasum.merge(d0.reshape(-1), d1.reshape(-1), [(0, n)],
+                            acc).view_as(d0)
+
+    losses = {0: [], 1: []}
+    gaps = {"rounding": 0.0, "fault": 0.0}
+    for step in range(ADASUM_STEPS):
+        start = [p.detach().clone() for p in params]
+        deltas = [[], []]
+        for r in range(2):
+            with torch.no_grad():
+                for p, s0 in zip(params, start):
+                    p.copy_(s0)
+            opts[r].zero_grad()
+            b = batches[r]
+            loss = bert.mlm_loss(model(b["input_ids"], deterministic=True),
+                                 b["labels"], b["mask"])
+            loss.backward()
+            losses[r].append(loss.item())
+            opts[r].step()
+            deltas[r] = [p.detach() - s0 for p, s0 in zip(params, start)]
+        last = step == ADASUM_STEPS - 1
+        with torch.no_grad():
+            for p, s0, d0, d1 in zip(params, start, *deltas):
+                new = s0 + merged(d0, d1, torch.float32)
+                if last:
+                    exact = s0 + merged(d0, d1, torch.float64)
+                    fault = s0 + (d0 + d1) * 0.5
+                    gaps["rounding"] = max(gaps["rounding"], (
+                        new - exact).abs().max().item())
+                    gaps["fault"] = max(gaps["fault"], (
+                        new - fault).abs().max().item())
+                p.copy_(new)
+        del start, deltas
+    gap = max((model_state[n].cuda() - p.detach()).abs().max().item()
+              for n, p in zip(names, params))
+    out = {"losses": losses, "params_gap": gap, **gaps}
+    del model, params, opts, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def adasum_bert_large(tmp: str) -> dict:
+    """``adasum/adasum_bert_pretrain.py`` at BERT-large's published widths
+    (``bert_large_config()``: 24 layers, 1024 wide, 16 heads, vocab
+    30522, bf16 compute, fp32 parameters) with the flash kernel, seq
+    128, batch 8 per rank, ``ADASUM_STEPS`` steps, two ranks on this
+    card; then its one-process oracle.  Returns the ``adasum_bert``
+    fields."""
+    report = os.path.join(tmp, "adasum_report")
+    t0 = time.perf_counter()
+    out = launch_example(
+        [os.path.join(EXAMPLES, "adasum", "adasum_bert_pretrain.py"),
+         "--steps", str(ADASUM_STEPS), "--batch-size", str(ADASUM_BATCH),
+         "--seq-len", str(ADASUM_SEQ), "--lr", str(ADASUM_LR),
+         "--attention", "flash", "--report", report], 2, tmp,
+        "examples (adasum_bert)")
+    launch_s = time.perf_counter() - t0
+    reports = []
+    for r in range(2):
+        with open(os.path.join(report, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    state = torch.load(os.path.join(report, "params.pt"))
+    t0 = time.perf_counter()
+    oracle = adasum_oracle(state)
+    oracle_s = time.perf_counter() - t0
+    del state
+
+    def per_step(rep, pick):
+        return (pick(rep["after"]) - pick(rep["before"])) / ADASUM_STEPS
+
+    def responses(counts):
+        return sum(n for k, n in counts["collectives"].items()
+                   if "op=ADASUM" in k)
+
+    printed = rank_stdout(out, 0)
+    fields = {
+        "example": "horovod_tpu_torch/examples/adasum/adasum_bert_pretrain.py",
+        "config": "bert_large_config(attention_impl='flash'): 24 x 1024, "
+                  "16 heads, vocab 30522, bf16 compute, fp32 parameters",
+        "parameters": reports[0]["parameters"], "ranks": 2,
+        "backend": [rep["backend"] for rep in reports],
+        "batch_per_rank": ADASUM_BATCH, "seq": ADASUM_SEQ,
+        "steps": ADASUM_STEPS, "printed": printed,
+        "losses": {rep["rank"]: rep["losses"] for rep in reports},
+        "oracle_losses": oracle["losses"],
+        "step_ms": {rep["rank"]: rep["step_ms"] for rep in reports},
+        "median_step_ms": [statistics.median(rep["step_ms"][1:])
+                           for rep in reports],
+        "max_memory_allocated": [rep["max_memory_allocated"]
+                                 for rep in reports],
+        "fused_responses_per_step": [per_step(rep, responses)
+                                     for rep in reports],
+        "fusion_packs_per_step": [per_step(rep, lambda c: c["fusion"]["pack"])
+                                  for rep in reports],
+        "fusion_unpacks_per_step": [
+            per_step(rep, lambda c: c["fusion"]["unpack"]) for rep in reports],
+        "fusion_plain_per_step": [
+            per_step(rep, lambda c: c["fusion_plain"]["pack"])
+            for rep in reports],
+        "flash_launches_per_step": [per_step(rep, lambda c: c["flash"])
+                                    for rep in reports],
+        "params_gap": oracle["params_gap"],
+        "rounding_gap": oracle["rounding"], "fault_gap": oracle["fault"],
+        "params_atol": ADASUM_PARAM_ATOL,
+        "launch_s": launch_s, "oracle_s": oracle_s}
+    counts = {"flash": sum(rep["after"]["flash"] - rep["before"]["flash"]
+                           for rep in reports),
+              "fusion": sum(rep["after"]["fusion"][k] -
+                            rep["before"]["fusion"][k]
+                            for rep in reports for k in ("pack", "unpack"))}
+    return fields, counts
+
+
+def phase_examples() -> dict:
+    """The user's entry points on the card, each launched as a user
+    launches it (``python -m horovod_tpu_torch.runner.launch -np 2 -H
+    localhost:2``, two ranks on this card over gloo with host staging)
+    from a temporary directory: Adasum BERT-large pretraining
+    (``adasum_bert``), the PyTorch synthetic benchmark with its stand-in
+    CNN (``synthetic_benchmark``), and an upstream Horovod script through
+    the ``horovod`` alias (``alias``).  Gates: every launch exits 0; the
+    BERT-large ranks ran on gloo, through the flash kernel (24 launches
+    a step and rank) and the fusion kernel (no plain pack), with finite
+    losses equal to the oracle's within 1e-3 and rank 0's parameters
+    within ``ADASUM_PARAM_ATOL`` of the oracle's, between the measured
+    rounding and fault gaps; the benchmark printed its img/s; the alias
+    script got the port, loaded no JAX and reduced a CUDA tensor
+    exactly."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        bert_fields, counts = adasum_bert_large(tmp)
+        emit("adasum_bert", **bert_fields)
+        out = launch_example(
+            [os.path.join(EXAMPLES, "pytorch", "pytorch_synthetic_benchmark.py"),
+             "--batch-size", str(BENCH_EXAMPLE_BATCH)], 2, tmp,
+            "examples (synthetic_benchmark)")
+        bench = rank_stdout(out, 0)
+        total = re.search(r"^Total img/sec on 2 worker\(s\): ([\d.]+) "
+                          r"\+-([\d.]+)$", "\n".join(bench), re.M)
+        per_worker = re.search(r"^Img/sec per worker: ([\d.]+) \+-([\d.]+)$",
+                               "\n".join(bench), re.M)
+        iters = [float(x) for x in re.findall(
+            r"^Iter #\d+: ([\d.]+) img/sec per worker$", "\n".join(bench),
+            re.M)]
+        emit("synthetic_benchmark",
+             example="horovod_tpu_torch/examples/pytorch/"
+                     "pytorch_synthetic_benchmark.py",
+             model="the example's stand-in CNN (no torchvision here)",
+             ranks=2, batch_per_rank=BENCH_EXAMPLE_BATCH, printed=bench,
+             img_s_per_iter=iters,
+             img_s_per_worker=float(per_worker.group(1)) if per_worker
+             else None,
+             img_s_total=float(total.group(1)) if total else None)
+        assert total and per_worker and len(iters) == 3, bench
+        script = os.path.join(tmp, "upstream_train.py")
+        with open(script, "w") as f:
+            f.write(ALIAS_SCRIPT)
+        out = launch_example([script], 2, tmp, "examples (alias)")
+        alias = [json.loads(line[len("RESULT "):])
+                 for r in range(2) for line in rank_stdout(out, r)
+                 if line.startswith("RESULT ")]
+        emit("alias", script="import horovod.torch as hvd, two ranks",
+             pythonpath=REPO, results=alias)
+        assert len(alias) == 2, out[-4000:]
+        for a in alias:
+            assert a["alias_is_port"] and a["jax_loaded"] == [], a
+            assert a["exact"] and a["device"].startswith("cuda"), a
+            assert a["horovod_file"].endswith(
+                os.path.join("_alias", "horovod", "__init__.py")), a
+    b = bert_fields
+    assert b["backend"] == ["gloo", "gloo"], b["backend"]
+    assert len(b["printed"]) == ADASUM_STEPS and all(
+        line.startswith(f"step {i} loss ")
+        for i, line in enumerate(b["printed"])), b["printed"]
+    for r in range(2):
+        assert all(math.isfinite(x) for x in b["losses"][r]), b["losses"]
+        assert max(abs(x - y) for x, y in zip(
+            b["losses"][r], b["oracle_losses"][r])) <= 1e-3, \
+            (b["losses"], b["oracle_losses"])
+        assert b["flash_launches_per_step"][r] == 24, b
+        assert b["fusion_packs_per_step"][r] > 0, b
+        assert b["fusion_plain_per_step"][r] == 0, b
+        assert b["fused_responses_per_step"][r] > 0, b
+    assert b["rounding_gap"] <= ADASUM_PARAM_ATOL < b["fault_gap"], b
+    assert b["params_gap"] <= ADASUM_PARAM_ATOL, b
+    emit("examples", seconds=time.perf_counter() - t0)
+    return counts
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -3738,8 +4081,9 @@ def main():
     context_parallel = timed(phase_context_parallel)
     dlrm_serve = timed(phase_dlrm_serve)
     spark_estimator = timed(phase_spark_estimator)
+    examples = timed(phase_examples)
     paths = (launches, coordinator, elastic, durable, sharded, resnet50,
-             context_parallel, dlrm_serve, spark_estimator)
+             context_parallel, dlrm_serve, spark_estimator, examples)
     flash_row["launches"] = sum(p["flash"] for p in paths)
     fusion_row["launches"] = sum(p["fusion"] for p in paths)
     emit("script", seconds=time.perf_counter() - t0, phase_seconds=seconds)

@@ -17,6 +17,7 @@ import socket
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional
 
+from .._alias import install as install_alias
 from ..runner.hosts import HostInfo, get_host_assignments, slot_env_vars
 from ..runner.http_server import RendezvousServer, find_ports
 
@@ -95,6 +96,7 @@ class RayExecutor:
             def set_env(self, env):
                 import os
                 os.environ.update(env)
+                install_alias()
 
             def execute(self, fn, *args, **kwargs):
                 return fn(*args, **kwargs)

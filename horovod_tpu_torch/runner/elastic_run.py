@@ -19,6 +19,7 @@ import shlex
 import time
 from typing import Dict, List, Optional
 
+from .._alias import worker_pythonpath
 from ..common import env as env_mod
 from . import safe_shell_exec
 from .hosts import SlotInfo
@@ -80,6 +81,9 @@ def launch_elastic(command: List[str],
         }
         if extra_worker_env:
             worker_env.update(extra_worker_env)
+        # The port's `horovod` alias first (see gpu_run.slot_command).
+        worker_env["PYTHONPATH"] = worker_pythonpath(
+            worker_env.get("PYTHONPATH", base_env.get("PYTHONPATH")))
         assigns = " ".join(f"{k}={shlex.quote(str(v))}"
                            for k, v in worker_env.items())
         fwd = " ".join(f"{k}={shlex.quote(v)}"

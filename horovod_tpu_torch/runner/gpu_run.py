@@ -37,6 +37,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from .._alias import worker_pythonpath
 from ..common import env as env_mod
 from . import safe_shell_exec
 from .hosts import SlotInfo, get_host_assignments, parse_hosts, \
@@ -104,6 +105,10 @@ def slot_command(run_command: str, slot: SlotInfo, env: Dict[str, str],
     slot_env = dict(common_env)
     slot_env.update(slot_env_vars(slot))
     slot_env["PYTHONUNBUFFERED"] = "1"
+    # The port's `horovod` alias first, so that `import horovod.torch`
+    # in the worker's script reaches the port.
+    slot_env["PYTHONPATH"] = worker_pythonpath(
+        slot_env.get("PYTHONPATH", env.get("PYTHONPATH")))
     slot_env.pop(job_secret.ENV, None)
     assigns = " ".join(f"{k}={shlex.quote(str(v))}"
                        for k, v in slot_env.items())
@@ -362,7 +367,10 @@ def run_func(func: Callable, hosts: str, np: int,
     command = [sys.executable, "-m", "horovod_tpu_torch.runner.gpu_run"]
     worker_env = dict(env or os.environ)
     worker_env[job_secret.ENV] = secret
-    worker_env.setdefault("PYTHONPATH", os.pathsep.join(sys.path))
+    # The alias first, then the caller's path and this process's, so
+    # that the workers unpickle what this process pickled.
+    worker_env["PYTHONPATH"] = worker_pythonpath(os.pathsep.join(
+        [worker_env.get("PYTHONPATH", "")] + sys.path))
     try:
         # The static launcher runs its own rendezvous server for worker
         # coordination; results flow through ours.

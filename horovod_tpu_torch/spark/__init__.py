@@ -18,6 +18,7 @@ import os
 import socket
 from typing import Callable, List, Optional
 
+from .._alias import install as install_alias
 from ..runner.hosts import HostInfo, get_host_assignments, slot_env_vars
 from ..runner.http_server import RendezvousServer, find_ports, \
     local_addresses
@@ -103,6 +104,7 @@ def run(fn: Callable, args=(), kwargs=None, num_proc: Optional[int] = None,
         if extra_env:
             env.update(extra_env)
         os.environ.update(env)
+        install_alias()
 
         f, a, kw = cloudpickle.loads(payload)
         result = f(*a, **kw)

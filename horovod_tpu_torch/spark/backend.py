@@ -24,10 +24,7 @@ import tempfile
 import time
 from typing import Callable, List, Optional
 
-# The directory that holds this package, so that a worker started with
-# ``python -c`` imports it from wherever the driver runs.
-_PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+from .._alias import worker_pythonpath
 
 
 class Backend:
@@ -124,9 +121,9 @@ class LocalBackend(Backend):
                     "HOROVOD_CONTROLLER_ADDR": f"127.0.0.1:{ctrl_port}",
                     "HVD_ESTIMATOR_FN": fn_path,
                     "HVD_ESTIMATOR_OUT": out_path,
-                    "PYTHONPATH": os.pathsep.join(
-                        p for p in (_PACKAGE_ROOT, env.get("PYTHONPATH"))
-                        if p),
+                    # The package from wherever the driver runs, and the
+                    # port's `horovod` alias first.
+                    "PYTHONPATH": worker_pythonpath(env.get("PYTHONPATH")),
                 })
                 if extra_env:
                     env.update(extra_env)

@@ -112,6 +112,36 @@ def test_no_source_imports_jax_or_reference():
     assert offenders == []
 
 
+@pytest.mark.parametrize("subdir", ["examples", "_alias"])
+def test_scan_covers_the_entry_points(subdir):
+    """The scan above reaches the examples and the ``horovod`` alias,
+    and none of their files imports the root's ``horovod`` package
+    either (the JAX package's alias): the port's alias is reached by its
+    directory on the path, never imported by the port itself."""
+    root = os.path.join(REPO, "horovod_tpu_torch", subdir)
+    sources = sorted(p for p in _port_sources()
+                     if p.startswith(root + os.sep))
+    want = sorted(os.path.join(d, f) for d, _, files in os.walk(root)
+                  for f in files if f.endswith(".py"))
+    assert sources == want and len(want) >= (17 if subdir == "examples"
+                                             else 2)
+    offenders = []
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                          for n in names
+                          if _forbidden(n) or n.split(".")[0] == "horovod"]
+    assert offenders == []
+
+
 def test_root_exports_the_jax_root_names():
     import horovod_tpu
     import horovod_tpu_torch

@@ -6,6 +6,7 @@ endpoint's status codes, and ``--check-build``.  Launches of real
 worker processes are in test_torch_port_launch.py."""
 
 import dataclasses
+import shlex
 import sys
 import textwrap
 import threading
@@ -24,6 +25,7 @@ from horovod_tpu.runner import http_server as jax_http
 from horovod_tpu.runner import job_secret as jax_secret
 from horovod_tpu.runner import launch as jax_launch
 from horovod_tpu.runner import tpu_run as jax_run
+from horovod_tpu_torch._alias import worker_pythonpath
 from horovod_tpu_torch.common import basics
 from horovod_tpu_torch.common import env as env_mod
 from horovod_tpu_torch.common import metrics as port_metrics
@@ -210,7 +212,12 @@ def test_slot_command_and_secret_transport_match_jax():
     common = {"HOROVOD_GLOO_RENDEZVOUS_ADDR": "127.0.0.1",
               "HOROVOD_SECRET_KEY": "SECRET123"}
     got = port_run.slot_command("python t.py", slot, env, common)
-    assert got == jax_run.slot_command("python t.py", jslot, env, common)
+    # The port's command also puts its `horovod` alias first on the
+    # worker's path; the rest is the JAX package's command.
+    alias = "PYTHONPATH=%s " % shlex.quote(worker_pythonpath(None))
+    assert alias in got
+    assert got.replace(alias, "", 1) == jax_run.slot_command(
+        "python t.py", jslot, env, common)
     assert "SECRET123" not in got and "HOROVOD_RANK=1" in got
     for local in (True, False):
         cmd, exec_env, stdin = port_run.secret_transport("echo hi", "K",
