@@ -14,10 +14,11 @@ attention widths and the pipeline x expert-parallel step over four
 ranks, trains DLRM-tiny at two ranks while a replica on the card
 serves its durable commits over HTTP, fits the MNIST CNN at two
 ranks through the Spark estimator API and resumes it from its Store,
-and launches the user's entry points: the Adasum BERT-large pretraining
+launches the user's entry points: the Adasum BERT-large pretraining
 example and the PyTorch synthetic benchmark from
 ``horovod_tpu_torch/examples/``, and an upstream Horovod script through
-the port's ``horovod`` alias.
+the port's ``horovod`` alias, and runs the operator tools of
+``horovod_tpu_torch/tools/`` against live ranks on the card.
 
     python3 chip_smoke.py
 
@@ -118,6 +119,18 @@ the plain Adasum formula) within ``ADASUM_PARAM_ATOL``;
 ``pytorch/pytorch_synthetic_benchmark.py`` (batch 32, its stand-in CNN);
 and an upstream-style ``import horovod.torch as hvd`` script, which
 must get the port, load no JAX and reduce a CUDA tensor exactly.
+
+The tools phase runs ``python -m horovod_tpu_torch.tools.<name>`` as a
+user runs it: ``measure_torch_staging`` at two ranks (1, 16 and 64 MB,
+every sum exact), with ``hvdtop --once`` (signed, and unsigned, which
+the job secret refuses) and ``flame`` against the ranks' live
+``/status`` and ``/profile`` while it measures; ``measure_elastic
+--paths torch --runs 1`` with the flight recorder armed in the workers,
+then ``blackbox_merge`` of their dumps, which must name the dead rank,
+and ``validate_trace --merged`` of the merge; ``profile_resnet`` at
+batch 128 with a device trace that ``validate_trace`` must accept; and
+``tune_report``, plain and ``--diff``, on the profile the tune_durable
+phase froze.
 """
 
 import ast
@@ -1973,6 +1986,10 @@ def start_launcher(cmd, env, cwd: str = REPO):
     return proc, lines, reader
 
 
+# The profile launch A froze, as its file held it (phase_tools).
+TUNED_PROFILE = []
+
+
 def phase_tune_durable() -> dict:
     """GPT-2 small at two ranks on this card, twice through the launcher
     (``-np 2 -H localhost:2 --tune --tune-profile``, with
@@ -2027,7 +2044,8 @@ def phase_tune_durable() -> dict:
                             "wall0": wall0, "sigterm": sigterm,
                             "spawned": spawned_walls(out)}
         with open(profile) as f:
-            frozen_profile = json.load(f)
+            TUNED_PROFILE.append(f.read())  # the tools phase reports it
+        frozen_profile = json.loads(TUNED_PROFILE[-1])
         manifests = {step: sum(sh["nbytes"] for sh in read_manifest(
             step_dir(ckpt_dir, step)).shards)
             for step in committed_steps(ckpt_dir)}
@@ -4020,6 +4038,253 @@ def phase_examples() -> dict:
     return counts
 
 
+TOOLS_TIMEOUT_S = 600
+STAGING_SIZES_MB = ("1", "16", "64")
+# What tests/test_flight_recorder.py's real-kill test arms, so that the
+# death writes dumps: a 4096-event ring, HB liveness every 0.3 s, a
+# 0.6 s reconnect grace and a 4 s stall shutdown.
+ELASTIC_BLACKBOX_ENV = {"HOROVOD_BLACKBOX_EVENTS": "4096",
+                        "HOROVOD_LIVENESS_INTERVAL": "0.3",
+                        "HOROVOD_RECONNECT_GRACE": "0.6",
+                        "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "4"}
+PROFILE_BATCH, PROFILE_ITERS = 128, 30
+
+
+def run_tool(name: str, *args, env=None) -> str:
+    """``python -m horovod_tpu_torch.tools.<name> *args`` from this
+    checkout; returns its standard output and raises unless it exits 0
+    within ``TOOLS_TIMEOUT_S``."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"horovod_tpu_torch.tools.{name}", *args],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO, **(env or {})),
+        capture_output=True, text=True, timeout=TOOLS_TIMEOUT_S)
+    if proc.returncode != 0:
+        print(proc.stdout[-8000:], proc.stderr[-8000:], flush=True)
+        raise RuntimeError(f"tools: {name} {' '.join(args)} exited "
+                           f"{proc.returncode}")
+    return proc.stdout
+
+
+def last_json(out: str) -> dict:
+    """The JSON object a tool printed last (``json.dumps(..., indent=1)``
+    after the log lines of its run)."""
+    start = out.rfind("\n{\n")
+    return json.loads(out[start + 1:] if start >= 0 else out)
+
+
+def get_json(url: str, secret: str):
+    req = urllib.request.Request(url)
+    ts = repr(time.time())
+    path = "/" + url.split("://", 1)[1].split("/", 1)[1]
+    req.add_header(job_secret.TS_HEADER, ts)
+    req.add_header(job_secret.HEADER,
+                   job_secret.sign(secret, "GET", path, b"", ts))
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return json.loads(r.read().decode())
+
+
+def staging_and_readers(tmp: str) -> tuple:
+    """``measure_torch_staging`` at two ranks on this card, with each
+    rank's ``/metrics`` endpoint (``HOROVOD_METRICS_PORT``: base + local
+    rank) under a job secret, the sampling profiler and the straggler
+    observatory on (rank 0 then hosts the Python coordinator and its
+    ``/status`` carries the cluster view).  While it measures, the
+    readers run against the live endpoints: ``hvdtop --once`` signed and
+    unsigned, and ``flame`` over both ranks' ``/profile``.  Returns the
+    staging result and the readers' fields."""
+    while True:
+        base = free_port()
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", base + 1))
+                break
+            except OSError:
+                continue
+    secret = job_secret.make_secret_key()
+    env = dict(os.environ, PYTHONPATH=REPO, HOROVOD_METRICS_PORT=str(base),
+               HOROVOD_SECRET_KEY=secret, HOROVOD_PROFILE="1",
+               HOROVOD_STRAGGLER="1")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.tools.measure_torch_staging",
+           "--sizes", *STAGING_SIZES_MB]
+    proc, lines, reader = start_launcher(cmd, env)
+    urls = [f"http://127.0.0.1:{base + r}" for r in range(2)]
+    try:
+        deadline = time.monotonic() + TOOLS_TIMEOUT_S
+        while True:
+            try:
+                if all(get_json(u + "/profile", secret).get("collapsed")
+                       for u in urls):
+                    break
+            except (OSError, ValueError):
+                pass
+            if proc.poll() is not None or time.monotonic() > deadline:
+                print("".join(lines)[-8000:], flush=True)
+                raise RuntimeError("tools: the staging ranks' /profile "
+                                   "never had samples")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        signed = run_tool("hvdtop", "--once", "--url", urls[0], "--secret",
+                          secret)
+        unsigned = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.tools.hvdtop",
+             "--once", "--url", urls[0], "--secret", ""], cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True, timeout=TOOLS_TIMEOUT_S)
+        collapsed, svg = (os.path.join(tmp, "job.collapsed"),
+                          os.path.join(tmp, "job.svg"))
+        flame_out = run_tool("flame", *urls, "-o", collapsed, "--svg", svg,
+                             "--secret", secret)
+        readers_s = time.perf_counter() - t0
+        proc.wait(timeout=TOOLS_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            kill_tree(proc.pid)
+            proc.wait()
+    reader.join(timeout=30)
+    out = "".join(lines)
+    if proc.returncode != 0:
+        print(out[-8000:], flush=True)
+        raise RuntimeError(f"tools: measure_torch_staging exited "
+                           f"{proc.returncode}")
+    stacks = open(collapsed).read().splitlines()
+    readers = {
+        "hvdtop_frame": signed.splitlines(),
+        "hvdtop_unsigned_rc": unsigned.returncode,
+        "hvdtop_unsigned_stderr": unsigned.stderr.strip()[-300:],
+        "flame_printed": flame_out.splitlines(),
+        "flame_stacks_by_rank": {r: sum(1 for x in stacks
+                                        if x.startswith(f"rank {r};"))
+                                 for r in range(2)},
+        "flame_samples_by_rank": {r: sum(int(x.rsplit(" ", 1)[1])
+                                         for x in stacks
+                                         if x.startswith(f"rank {r};"))
+                                  for r in range(2)},
+        "svg_bytes": os.path.getsize(svg), "readers_s": readers_s}
+    return last_json(out), readers
+
+
+def phase_tools() -> dict:
+    """The port's operator tools (``horovod_tpu_torch/tools/``) on this
+    card, each run as a user runs it (``python -m
+    horovod_tpu_torch.tools.<name>``): ``measure_torch_staging`` at two
+    ranks with the readers ``hvdtop`` and ``flame`` against its live
+    endpoints (the ``staging`` and ``readers`` lines);
+    ``measure_elastic --paths torch --runs 1`` with the flight recorder
+    armed in the workers, then ``blackbox_merge`` of their dumps and
+    ``validate_trace --merged`` of the merged trace
+    (``elastic_latency``); ``profile_resnet`` at batch 128 with a device
+    trace that ``validate_trace`` must accept (``resnet_profile``); and
+    ``tune_report`` plain and ``--diff`` on the profile the
+    tune_durable phase froze (in the ``readers`` line).  Gates: every
+    tool exits 0 (``hvdtop`` unsigned is refused, 403, and exits 2);
+    every staging allreduce is exact; flame's collapsed file has samples
+    of both ranks; the elastic world shrank to 2 and the merge names the
+    dead rank; ResNet-50's loss is finite and its trace holds
+    convolution kernels."""
+    t0 = time.perf_counter()
+    counts = {"flash": 0, "fusion": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        staging, readers = staging_and_readers(tmp)
+        emit("staging", tool="horovod_tpu_torch.tools.measure_torch_staging",
+             ranks=staging["ranks"], device=staging["device"],
+             exact=staging["exact"],
+             results_checked=staging["results_checked"],
+             allreduce=staging["allreduce"],
+             conversion_only=staging["conversion_only"],
+             paired=staging["paired"],
+             fusion_launches=staging["fusion_launches"],
+             endpoints="HOROVOD_METRICS_PORT, HOROVOD_PROFILE=1, "
+                       "HOROVOD_STRAGGLER=1, a job secret")
+        counts["fusion"] += sum(staging["fusion_launches"].values())
+        assert staging["exact"] and staging["results_checked"] > 0, staging
+        assert [r["size_mb"] for r in staging["allreduce"]] == [
+            int(mb) for mb in STAGING_SIZES_MB for _ in range(2)], staging
+        for r in staging["allreduce"]:
+            assert r["gbps"] > 0, r
+            assert r["backend"] == ("gloo, staged through pinned host "
+                                    "memory" if r["input"] == "torch"
+                                    else "gloo"), r
+            assert r["device"] == ("cuda:0" if r["input"] == "torch"
+                                   else "cpu"), r
+        assert all(c["round_trip_us"] > 0
+                   for c in staging["conversion_only"]), staging
+
+        bb = os.path.join(tmp, "blackbox")
+        out = run_tool("measure_elastic", "--paths", "torch", "--runs", "1",
+                       env=dict(ELASTIC_BLACKBOX_ENV, HOROVOD_BLACKBOX_DIR=bb))
+        elastic = last_json(out)["torch_reinit"]
+        sample = elastic["samples"][0]
+        assert "error" not in sample, sample
+        counts["fusion"] += sample["fusion_launches"]
+        merged = os.path.join(tmp, "merged.json")
+        verdict = json.loads(run_tool("blackbox_merge", bb, "-o", merged))
+        valid = run_tool("validate_trace", "--merged", merged)
+        emit("elastic_latency", tool="horovod_tpu_torch.tools.measure_elastic",
+             layout="localhost:2 + 127.0.0.1:1, the 127.0.0.1 worker dies "
+                    "at epoch 3", step="allreduce of 4 fp32 on cuda",
+             blackbox_env=ELASTIC_BLACKBOX_ENV,
+             death_to_first_post_resize_step_s=sample[
+                 "death_to_first_post_resize_step_s"],
+             first_post_resize_step_ms=sample["first_post_resize_step_ms"],
+             steady_state_step_ms=sample["steady_state_step_ms"],
+             post_resize_size=sample["post_resize_size"],
+             fusion_launches=sample["fusion_launches"],
+             dumps=sorted(os.listdir(bb)), failed_rank=verdict["failed_rank"],
+             spans=verdict["spans"], mttr_s=verdict["mttr_s"],
+             first_divergent=(verdict["first_divergent_event"] or {}).get(
+                 "kind"),
+             clock_offsets=verdict["clock_offsets"],
+             events_total=verdict["events_total"],
+             merged_trace_valid=valid.strip().endswith("OK"))
+        assert sample["post_resize_size"] == 2, sample
+        assert verdict["failed_rank"] == 2, verdict
+        assert verdict["spans"].get("total", 0) > 0, verdict
+
+        tdir = os.path.join(tmp, "resnet_trace")
+        prof = last_json(run_tool(
+            "profile_resnet", "--batch-size", str(PROFILE_BATCH),
+            "--iters", str(PROFILE_ITERS), "--trace", tdir))
+        valid = run_tool("validate_trace", prof["trace_path"])
+        hist = prof["kernel_histogram"]
+        emit("resnet_profile", tool="horovod_tpu_torch.tools.profile_resnet",
+             batch_size=prof["batch_size"], image_size=prof["image_size"],
+             iters=PROFILE_ITERS, card=prof["card"],
+             step_ms=prof["step_ms"], images_per_sec=prof["images_per_sec"],
+             achieved_tflops=prof["achieved_tflops"],
+             peak_bf16_tflops=prof["peak_bf16_tflops"],
+             peak_source=prof["peak_source"], mfu=prof["mfu"],
+             flops_per_step=prof["flops_per_step"],
+             flops_source=prof["flops_source"],
+             first_step_ms=prof["first_step_ms"], loss=prof["loss"],
+             trace_steps=prof["trace_steps"],
+             device_ms_per_step=prof["device_ms_per_step"],
+             kernel_histogram=hist, top_kernels=prof["top_kernels"][:5],
+             trace_valid=valid.strip().endswith("OK"))
+        assert math.isfinite(prof["loss"]) and prof["step_ms"] > 0, prof
+        assert hist.get("convolution", {}).get("launches_per_step", 0) > 0, \
+            hist
+
+        if not TUNED_PROFILE:
+            raise RuntimeError("tools: tune_report needs the profile the "
+                               "tune_durable phase froze")
+        profile = os.path.join(tmp, "profile.json")
+        with open(profile, "w") as f:
+            f.write(TUNED_PROFILE[-1])
+        report = run_tool("tune_report", profile)
+        diff = run_tool("tune_report", "--diff", profile, profile)
+        emit("readers", **readers, tune_report=report.splitlines(),
+             tune_report_diff=diff.splitlines())
+        assert readers["hvdtop_unsigned_rc"] == 2 and \
+            "403" in readers["hvdtop_unsigned_stderr"], readers
+        assert any(line.startswith("cluster: size 2")
+                   for line in readers["hvdtop_frame"]), readers
+        assert all(n > 0 for n in readers["flame_samples_by_rank"].values()), \
+            readers
+        assert "worker knobs unchanged" in diff, diff
+    emit("tools", seconds=time.perf_counter() - t0)
+    return counts
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -4082,8 +4347,9 @@ def main():
     dlrm_serve = timed(phase_dlrm_serve)
     spark_estimator = timed(phase_spark_estimator)
     examples = timed(phase_examples)
+    tools = timed(phase_tools)
     paths = (launches, coordinator, elastic, durable, sharded, resnet50,
-             context_parallel, dlrm_serve, spark_estimator, examples)
+             context_parallel, dlrm_serve, spark_estimator, examples, tools)
     flash_row["launches"] = sum(p["flash"] for p in paths)
     fusion_row["launches"] = sum(p["fusion"] for p in paths)
     emit("script", seconds=time.perf_counter() - t0, phase_seconds=seconds)

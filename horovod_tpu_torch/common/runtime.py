@@ -547,21 +547,26 @@ class BackgroundRuntime:
             self.timeline.counter("queue_depth", {
                 "pending": len(pending),
                 "outstanding": self.tensor_queue.outstanding()})
-        responses, leftovers = self.controller.compute_response_list(
-            pending, self._entry_sizes,
-            self.state.knobs.fusion_threshold_bytes)
-        if leftovers:
-            self.tensor_queue.push_back(leftovers)
         if self.stall_inspector is not None:
             # Local watchdog only: this rank's own stuck submissions
             # (e.g. unreachable coordinator).  Cross-rank attribution —
             # "ranks a,b submitted X, ranks c,d did not" — lives on the
             # rank-0 coordinator (controller_net.stall_report /
             # native coordinator), matching the reference's rank-0
-            # stall inspector (stall_inspector.h:74-80).
+            # stall inspector (stall_inspector.h:74-80).  Recorded
+            # BEFORE the requests go out, as the inline path does: the
+            # recv thread may complete and remove() a tensor while
+            # compute_response_list still runs, and a record made
+            # after it would keep a completed tensor for ever.
             for req in pending:
                 self.stall_inspector.record_uncached_tensor(
                     req.tensor_name, req.request_rank)
+        responses, leftovers = self.controller.compute_response_list(
+            pending, self._entry_sizes,
+            self.state.knobs.fusion_threshold_bytes)
+        if leftovers:
+            self.tensor_queue.push_back(leftovers)
+        if self.stall_inspector is not None:
             self.stall_inspector.check()
         for resp in responses:
             self._perform_operation(resp)

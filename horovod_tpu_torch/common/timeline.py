@@ -210,7 +210,13 @@ def start_xla_trace(log_dir: str):
 def stop_xla_trace() -> str:
     """Stop the trace :func:`start_xla_trace` began and write it; returns
     the path of the Chrome trace (``<host>.<pid>.<ms>.pt.trace.json`` in
-    its ``log_dir``).  Raises when no trace is running."""
+    its ``log_dir``).  Raises when no trace is running.
+
+    ``torch.profiler``'s export is kept but for its metadata events
+    without ``args.name`` (``process_labels``, ``process_sort_index``,
+    ``thread_sort_index``: a viewer's labels and ordering), which the
+    repository's trace rules refuse (every ``M`` event names its process
+    or thread: ``tools/validate_trace``)."""
     global _device_trace
     import socket
     with _device_trace_lock:
@@ -224,4 +230,11 @@ def stop_xla_trace() -> str:
         path = os.path.join(log_dir, "%s.%d.%d.pt.trace.json" % (
             socket.gethostname(), os.getpid(), int(time.time() * 1e3)))
         prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        trace["traceEvents"] = [
+            e for e in trace["traceEvents"] if e.get("ph") != "M" or
+            "name" in (e.get("args") or {})]
+        with open(path, "w") as f:
+            json.dump(trace, f)
         return path

@@ -15,6 +15,10 @@ up to it (the reference returns one second after the shell exits, while
 the workers under it may still be finishing), and without ``psutil``
 ``terminate_process_tree`` waits for the process group up to the grace
 before it kills what is left (the reference signals it and returns).
+And with ``psutil`` it leaves the process it was given for that
+process's parent to reap: the JAX package's copy waits on it through
+``psutil.wait_procs``, which reaps a child of the caller, and
+``Popen.wait`` then records exit code 0 for a killed rank.
 """
 
 import logging
@@ -67,18 +71,36 @@ def terminate_process_tree(pid: int,
         root = psutil.Process(pid)
     except psutil.NoSuchProcess:
         return
-    procs = [root] + root.children(recursive=True)
-    for p in procs:
+    children = root.children(recursive=True)
+    for p in [root] + children:
         try:
             p.terminate()
         except psutil.NoSuchProcess:
             pass
-    _, alive = psutil.wait_procs(procs, timeout=grace_s)
+    deadline = time.monotonic() + grace_s
+    # Only the descendants are waited on by psutil, which reaps what is
+    # a child of this process: the root is left for its parent (the
+    # ``Popen`` in ``execute``) to reap, so that its exit code is kept.
+    _, alive = psutil.wait_procs(children, timeout=grace_s)
+    while _running(root) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if _running(root):
+        alive.append(root)
     for p in alive:
         try:
             p.kill()
         except psutil.NoSuchProcess:
             pass
+
+
+def _running(proc) -> bool:
+    """Whether ``proc`` (a ``psutil.Process``) has not exited: a zombie
+    has, and waits only for its parent to reap it."""
+    import psutil
+    try:
+        return proc.status() != psutil.STATUS_ZOMBIE
+    except psutil.NoSuchProcess:
+        return False
 
 
 def _forward_stream(stream: IO[bytes], sinks: List[IO], prefix: str = ""):

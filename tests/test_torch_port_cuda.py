@@ -1031,3 +1031,46 @@ def test_keras_torch_reducer_on_the_card(cuda, tmp_path, nproc):
         if nproc > 1:
             assert r["fusion"]["pack"] > 0 and r["fusion"]["unpack"] > 0, r
         assert r["plain"] == {"pack": 0, "unpack": 0}, r
+
+
+def _tool(name, *args, timeout=600):
+    """``python -m horovod_tpu_torch.tools.<name> *args`` with its default
+    device (the card); returns (exit code, the JSON it printed last)."""
+    import json
+    import os
+    import subprocess
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", f"horovod_tpu_torch.tools.{name}", *args],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo),
+        capture_output=True, text=True, timeout=timeout)
+    start = out.stdout.rfind("\n{\n")
+    text = out.stdout[start + 1:] if start >= 0 else out.stdout
+    return out.returncode, (json.loads(text) if text.startswith("{")
+                            else out.stderr)
+
+
+def test_staging_tool_on_the_card(cuda):
+    """The torch lane is a ``cuda:0`` tensor over gloo (two ranks on one
+    card), staged through pinned host memory; every sum is exact."""
+    rc, data = _tool("measure_torch_staging", "--sizes", "1", "4")
+    assert rc == 0, data
+    assert data["device"] == "cuda" and data["exact"], data
+    lanes = {r["input"]: r for r in data["allreduce"] if r["size_mb"] == 4}
+    assert lanes["torch"]["device"] == "cuda:0"
+    assert lanes["torch"]["backend"] == \
+        "gloo, staged through pinned host memory"
+    assert lanes["numpy"]["device"] == "cpu"
+    assert sum(data["fusion_launches"].values()) > 0
+
+
+def test_profiler_tool_on_the_card(cuda, tmp_path):
+    """ResNet-50's step on the card, its trace's kernels by category."""
+    rc, rep = _tool("profile_resnet", "--batch-size", "16", "--iters", "3",
+                    "--warmup", "2", "--trace", str(tmp_path))
+    assert rc == 0, rep
+    assert rep["device"] == torch.cuda.get_device_name(0)
+    assert rep["flops_per_step"] == 3 * 4.1e9 * 16
+    assert rep["kernel_histogram"]["convolution"]["launches_per_step"] > 0
+    if "H100 80GB HBM3" in rep["device"]:     # the table's one row
+        assert rep["peak_bf16_tflops"] == 989.4 and rep["mfu"] > 0

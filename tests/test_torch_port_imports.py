@@ -142,6 +142,51 @@ def test_scan_covers_the_entry_points(subdir):
     assert offenders == []
 
 
+TOOLS = ("validate_trace", "blackbox_merge", "tune_report", "hvdtop",
+         "flame", "measure_torch_staging", "measure_elastic",
+         "profile_resnet")
+# What the operator tools must not load: the JAX stack, the JAX package,
+# and the root's ``tools`` and ``bench`` (the JAX package's own tools).
+TOOLS_FORBIDDEN = FORBIDDEN + ("tools", "bench")
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tool_imports_no_jax_reference_root_tools_or_bench(tool):
+    """Each module of ``horovod_tpu_torch/tools/``: its source names none
+    of them, and importing it (as ``python -m`` runs it, from the repo
+    root) loads none of them."""
+    path = os.path.join(REPO, "horovod_tpu_torch", "tools", tool + ".py")
+    assert path in set(_port_sources())
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    offenders = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        offenders += [f"{node.lineno} {n}" for n in names
+                      if n.split(".")[0] in TOOLS_FORBIDDEN]
+    assert offenders == []
+    code = ("import sys\n"
+            f"import horovod_tpu_torch.tools.{tool}\n"
+            "print(','.join(sorted(m for m in sys.modules if m.split('.')[0]"
+            f" in {TOOLS_FORBIDDEN!r})))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout
+
+
+def test_tools_are_the_eight():
+    root = os.path.join(REPO, "horovod_tpu_torch", "tools")
+    assert sorted(f[:-3] for f in os.listdir(root) if f.endswith(".py")) == \
+        sorted(TOOLS + ("__init__",))
+
+
 def test_root_exports_the_jax_root_names():
     import horovod_tpu
     import horovod_tpu_torch

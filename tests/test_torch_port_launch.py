@@ -152,9 +152,9 @@ def test_failed_rank_fails_the_launch_and_kills_the_other(pkg, tmp_path):
     t.join(timeout=LAUNCH_TIMEOUT_S)
     assert not t.is_alive()
     # Rank 1 is named first.  Rank 0's code is named too unless it reads 0:
-    # psutil's wait in terminate_process_tree may reap the killed shell
-    # before subprocess does, and subprocess then records 0 (both
-    # packages).
+    # in the JAX package psutil's wait in terminate_process_tree may reap
+    # the killed shell before subprocess does, and subprocess then records
+    # 0 (test_a_killed_rank_keeps_its_exit_code).
     assert outcome["error"].startswith(
         "Horovod run failed: non-zero exit codes {1: 1")
     # Rank 0 would sleep 60 s: it was killed within the grace time.
@@ -271,6 +271,29 @@ def test_terminate_without_psutil_waits_for_the_group(handler, monkeypatch,
         assert p.returncode == 3 and 1.0 <= seconds < grace_s
     else:
         assert p.returncode == -9 and seconds >= grace_s
+
+
+def test_a_killed_rank_keeps_its_exit_code():
+    """A rank that ``terminate_process_tree`` kills keeps its real exit
+    code in the port: psutil waits on its descendants only, and the
+    ``Popen`` reaps the rank. The JAX package's copy lets psutil reap it,
+    and ``Popen.wait`` then reads 0."""
+    import subprocess
+    from horovod_tpu.runner import safe_shell_exec as ref_exec
+    pytest.importorskip("psutil")
+    codes = {}
+    for name, mod in (("port", safe_shell_exec), ("jax", ref_exec)):
+        p = subprocess.Popen("sleep 60", shell=True, start_new_session=True)
+        try:
+            t0 = time.monotonic()
+            mod.terminate_process_tree(p.pid, grace_s=10.0)
+            assert time.monotonic() - t0 < 10.0
+            codes[name] = p.wait(timeout=10)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert codes == {"port": -15, "jax": 0}
 
 
 def _call_with_timeout(fn, timeout=LAUNCH_TIMEOUT_S):

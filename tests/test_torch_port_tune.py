@@ -343,9 +343,17 @@ def test_knobs_adopt_profile(tmp_path, monkeypatch):
 
 
 def _run_cli(*argv):
-    return subprocess.run(
+    """The JAX package's ``tools/tune_report.py``, then the port's
+    ``horovod_tpu_torch.tools.tune_report``, on the same arguments: the
+    two must print the same and exit alike; returns the first's run."""
+    r = subprocess.run(
         [sys.executable, os.path.join(REPO, "tools", "tune_report.py"),
          *argv], capture_output=True, text=True, timeout=60)
+    port = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.tools.tune_report", *argv],
+        capture_output=True, text=True, timeout=60, cwd=REPO)
+    assert (port.returncode, port.stdout) == (r.returncode, r.stdout)
+    return r
 
 
 def test_tune_report_prints_the_port_profile(tmp_path):
