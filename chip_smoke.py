@@ -18,7 +18,9 @@ launches the user's entry points: the Adasum BERT-large pretraining
 example and the PyTorch synthetic benchmark from
 ``horovod_tpu_torch/examples/``, and an upstream Horovod script through
 the port's ``horovod`` alias, and runs the operator tools of
-``horovod_tpu_torch/tools/`` against live ranks on the card.
+``horovod_tpu_torch/tools/`` against live ranks on the card, and soaks
+the port's control plane under seeded faults and rank, relay and
+trainer deaths with the data plane on the card.
 
     python3 chip_smoke.py
 
@@ -131,6 +133,19 @@ and ``validate_trace --merged`` of the merge; ``profile_resnet`` at
 batch 128 with a device trace that ``validate_trace`` must accept; and
 ``tune_report``, plain and ``--diff``, on the profile the tune_durable
 phase froze.
+
+The chaos phase runs ``python -m horovod_tpu_torch.tools.chaos_soak
+--ranks 8 --schedules 3 --seed 0``: 8 thread ranks, each with its own
+runtime over the real coordinator and its own data-plane stream on this
+card, under the baseline and two seeded fault schedules, then the
+mid_epoch, mid_write and mid_delta checkpoint drills.  Then, in this
+process on ``cuda:0``, the replay-kill, MTTR kill-at-idle, relay
+kill-mid-negotiation and serve drills with the JAX tier-1 tests'
+arguments.  Every drill must be ok with no hang and no incorrect result,
+every collective's result must sit on ``cuda:0`` in its input's dtype,
+each postmortem must name the victim, and the phase must end within
+150 s.  It launches neither kernel (the ``kernels`` line's
+``launches_by_path`` shows 0 for it).
 """
 
 import ast
@@ -4285,6 +4300,127 @@ def phase_tools() -> dict:
     return counts
 
 
+# The chaos phase: the soak as a user runs it (the baseline and two
+# seeded fault schedules at 8 thread ranks, then the mid_epoch, mid_write
+# and mid_delta checkpoint drills), then four drills in this process with
+# the arguments of the JAX package's tier-1 tests.
+CHAOS_SOAK_ARGS = ("--ranks", "8", "--schedules", "3", "--seed", "0")
+CHAOS_PHASE_LIMIT_S = 150.0
+
+
+def chaos_trigger_counts(records) -> dict:
+    """{site: triggers} summed over records' failpoint counts."""
+    out = {}
+    for rec in records:
+        for site, rules in (rec.get("failpoint_triggers") or {}).items():
+            out[site] = out.get(site, 0) + sum(r["triggers"] for r in rules)
+    return out
+
+
+def phase_chaos() -> dict:
+    """The port's chaos soak on this card
+    (``horovod_tpu_torch/tools/chaos_soak.py``): ``python -m
+    horovod_tpu_torch.tools.chaos_soak --ranks 8 --schedules 3 --seed
+    0`` as a user runs it (its data plane on the card by default), then
+    in this process, on ``cuda:0``, the replay-kill, MTTR kill-at-idle,
+    relay kill-mid-negotiation and serve drills with the JAX tier-1
+    tests' arguments.  Each rank is a thread with its own runtime and
+    data-plane stream over the real control plane.  Gates: every ``ok``
+    true, no hang and no incorrect result, every collective's result on
+    ``cuda:0`` in its input's dtype (``hvd_chaos_results_total``), each
+    postmortem names the victim, and the phase takes at most
+    ``CHAOS_PHASE_LIMIT_S``.  Neither kernel runs here: the simulated
+    data plane sums in float64 on the card."""
+    from horovod_tpu_torch.tools import chaos_soak as cs
+    t0 = time.perf_counter()
+    flash0, fusion0 = fa.launches, sum(fb.launches.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "chaos_soak.json")
+        out = run_tool("chaos_soak", *CHAOS_SOAK_ARGS, "--out", art)
+        summary = json.loads([ln for ln in out.splitlines()
+                              if ln.startswith("CHAOSJSON ")][-1][10:])
+        with open(art) as f:
+            soak = json.load(f)
+    soak_s = time.perf_counter() - t0
+    placed0 = cs.result_placement()
+    drills = {
+        "replay_kill": cs.run_replay_kill_drill(
+            ranks=8, seed=3, hang_timeout_s=20.0, stall_shutdown_s=2.0,
+            device="cuda"),
+        "mttr_kill_idle": cs.run_mttr_drill(
+            fault="kill", when="idle", ranks=8, seed=7, device="cuda"),
+        "relay_kill_negotiation": cs.run_relay_drill(
+            fault="kill", when="negotiation", ranks=8, fanout=2, seed=3,
+            device="cuda"),
+        "serve": cs.run_serve_drill(
+            ranks=3, seed=5, steps=15, commit_every=3,
+            commit_timeout_s=1.0, device="cuda"),
+    }
+    placed1 = cs.result_placement()
+    in_process = {d: {k: n - placed0.get(d, {}).get(k, 0)
+                      for k, n in by.items()} for d, by in placed1.items()}
+    soak_placed = cs.result_placement(
+        soak["metrics"]["counters"].get("hvd_chaos_results_total"))
+    mttr, relay = drills["mttr_kill_idle"], drills["relay_kill_negotiation"]
+    launches = {"flash": fa.launches - flash0,
+                "fusion": sum(fb.launches.values()) - fusion0}
+    seconds = time.perf_counter() - t0
+    records = soak["schedules"] + (soak["checkpoint_drill"] or [])
+    emit("chaos", tool="horovod_tpu_torch.tools.chaos_soak",
+         soak_args=" ".join(CHAOS_SOAK_ARGS), soak_ok=summary["ok"],
+         outcomes={**{"schedule%d" % r["index"]: r["outcome"]
+                      for r in soak["schedules"]},
+                   **{"checkpoint_" + d["mode"]: d["ok"]
+                      for d in soak["checkpoint_drill"] or []},
+                   **{name: d["ok"] for name, d in drills.items()}},
+         specs=[r["spec"] for r in soak["schedules"]],
+         recovery_latency={k: summary["recovery_latency"][k]
+                           for k in ("count", "p50_s", "p90_s", "max_s")},
+         mttr={k: mttr.get(k) for k in ("victim", "detect_s", "restore_s",
+                                         "resume_s", "mttr_s")},
+         replay_kill={k: drills["replay_kill"].get(k) for k in
+                      ("victim", "replay_entries", "cycles_replayed",
+                       "recovery_latency_s")},
+         relay={k: relay.get(k) for k in ("victim_relay", "rehomed",
+                                          "rehome_s", "rehome_bound_s")},
+         serve={k: drills["serve"].get(k) for k in
+                ("victim", "kill_commit", "served_during_gap",
+                 "resumed_to", "reads", "torn_reads")},
+         postmortem={"mttr_failed_rank": mttr["postmortem"].get(
+                         "failed_rank"),
+                     "relay_failed_relay": relay["postmortem"].get(
+                         "failed_relay")},
+         failpoint_triggers=chaos_trigger_counts(records),
+         result_devices={"soak": soak_placed, "drills": in_process},
+         kernel_launches=launches,
+         kernel_note="the chaos phase launches neither kernel: it adds 0 "
+                     "to the kernels line's flash and fusion launches",
+         soak_seconds=soak_s, seconds=seconds)
+    bad = [name for name, ok in (
+        [("soak", summary["ok"])]
+        + [(n, d["ok"]) for n, d in drills.items()]) if not ok]
+    assert not bad, {n: drills.get(n, summary) for n in bad}
+    for r in soak["schedules"]:
+        assert r["outcome"] in ("ok", "recovered"), r
+        assert not r["hangs"] and not r["incorrect"], r
+    assert all(d["ok"] for d in soak["checkpoint_drill"]), soak
+    assert not drills["replay_kill"]["hangs"] and \
+        not drills["replay_kill"]["incorrect"], drills["replay_kill"]
+    assert not mttr["errors"] and not mttr["results_bad"], mttr
+    assert not relay["hangs"] and not relay["results_bad"], relay
+    assert drills["serve"]["torn_reads"] == 0, drills["serve"]
+    for where, placed in (("soak", soak_placed), ("drills", in_process)):
+        assert set(placed) == {"cuda:0"} and \
+            set(placed["cuda:0"]) == {"yes"} and \
+            placed["cuda:0"]["yes"] > 0, (where, placed)
+    assert mttr["postmortem"]["failed_rank"] == mttr["victim"], mttr
+    assert relay["postmortem"]["failed_relay"] == relay["victim_relay"], \
+        relay
+    assert launches == {"flash": 0, "fusion": 0}, launches
+    assert seconds <= CHAOS_PHASE_LIMIT_S, seconds
+    return launches
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -4348,10 +4484,17 @@ def main():
     spark_estimator = timed(phase_spark_estimator)
     examples = timed(phase_examples)
     tools = timed(phase_tools)
-    paths = (launches, coordinator, elastic, durable, sharded, resnet50,
-             context_parallel, dlrm_serve, spark_estimator, examples, tools)
-    flash_row["launches"] = sum(p["flash"] for p in paths)
-    fusion_row["launches"] = sum(p["fusion"] for p in paths)
+    chaos = timed(phase_chaos)
+    paths = {"train_2rank": launches, "coordinator": coordinator,
+             "elastic": elastic, "tune_durable": durable,
+             "sharded_train": sharded, "resnet50": resnet50,
+             "context_parallel": context_parallel,
+             "dlrm_serve": dlrm_serve, "spark_estimator": spark_estimator,
+             "examples": examples, "tools": tools, "chaos": chaos}
+    for row, kernel in ((flash_row, "flash"), (fusion_row, "fusion")):
+        row["launches"] = sum(p[kernel] for p in paths.values())
+        row["launches_by_path"] = {name: p[kernel]
+                                   for name, p in paths.items()}
     emit("script", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(CARD, flush=True)
     print(json.dumps({"kernels": [flash_row, fusion_row]}), flush=True)

@@ -51,6 +51,7 @@ Scope and honesty notes:
 """
 
 import os
+import sys
 import threading
 import traceback
 from typing import Dict, List, Optional, Tuple
@@ -125,10 +126,14 @@ def _depths() -> Dict[int, int]:
     return _tls.depth
 
 
+# The stack walks below start at their own frame and skip this module's
+# frames: ``traceback.walk_stack(None)`` starts several frames above its
+# caller on Python 3.12, which named the wrong creation site and let the
+# filter judge the wrong frame.
 def _creation_site() -> str:
     """file:line of the nearest stack frame outside this module and
     outside threading.py — the code that asked for the lock."""
-    for frame, lineno in traceback.walk_stack(None):
+    for frame, lineno in traceback.walk_stack(sys._getframe()):
         fn = frame.f_code.co_filename
         if _is_internal_frame(fn):
             continue
@@ -138,7 +143,7 @@ def _creation_site() -> str:
 
 def _witness_stack() -> str:
     out = []
-    for frame, lineno in traceback.walk_stack(None):
+    for frame, lineno in traceback.walk_stack(sys._getframe()):
         fn = frame.f_code.co_filename
         if _is_internal_frame(fn):
             continue
@@ -345,7 +350,7 @@ def _caller_wants_witness() -> bool:
     """True when the frame that called threading.Lock()/RLock() lives
     under the package filter (skipping threading.py itself, so
     Condition/Event internals stay unwrapped)."""
-    for frame, _ in traceback.walk_stack(None):
+    for frame, _ in traceback.walk_stack(sys._getframe()):
         fn = os.path.abspath(frame.f_code.co_filename).rstrip("co")
         if fn == _SELF_FILE:
             continue

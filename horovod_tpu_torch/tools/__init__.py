@@ -13,8 +13,12 @@ printed keys:
   SVG flamegraph;
 * ``measure_torch_staging``: the cost of the host-staged torch data path;
 * ``measure_elastic``: death to the first step after an elastic resize;
-* ``profile_resnet``: ResNet-50's step time, achieved TFLOP/s and MFU.
+* ``profile_resnet``: ResNet-50's step time, achieved TFLOP/s and MFU;
+* ``chaos_soak``: seeded fault schedules and the kill, wedge, relay,
+  checkpoint, serve, tune and autoscale drills against the control
+  plane, with the simulated data plane on the card.
 
-The last three run on the card unless ``--device cpu`` is given.  Every
-module imports only the standard library and the port at import.
+The last four run on the card unless ``--device cpu`` is given.  Every
+module imports only the standard library, numpy, torch and the port at
+import.
 """

@@ -1074,3 +1074,77 @@ def test_profiler_tool_on_the_card(cuda, tmp_path):
     assert rep["kernel_histogram"]["convolution"]["launches_per_step"] > 0
     if "H100 80GB HBM3" in rep["device"]:     # the table's one row
         assert rep["peak_bf16_tflops"] == 989.4 and rep["mfu"] > 0
+
+
+_CHAOS_SCHEDULES = [
+    {"index": 0, "spec": "chaos.baseline=delay(0s,times=0)", "seed": 7,
+     "kind": "baseline"},
+    {"index": 1, "spec": "worker.frame_send=drop(1,after=4,rank=3)",
+     "seed": 3, "kind": "fault"},
+    {"index": 2, "spec": "runtime.submit=crash(after=3,times=1,rank=5)",
+     "seed": 11, "kind": "fault"},
+]
+
+
+@pytest.mark.parametrize("schedule", _CHAOS_SCHEDULES,
+                         ids=lambda s: s["kind"] + str(s["index"]))
+def test_chaos_schedule_on_the_card_equals_the_cpu(cuda, schedule):
+    """The chaos soak's three tier-1 schedules at 8 thread ranks, each
+    with its data-plane stream on the card: the outcome, the completed
+    ops and the failpoint triggers of the same schedule on the CPU, and
+    every result on ``cuda:0`` in float32."""
+    from horovod_tpu_torch.tools import chaos_soak as cs
+    kw = dict(ranks=8, n_ops=12, hang_timeout_s=30.0, stall_shutdown_s=2.0)
+    placed0 = cs.result_placement()
+    on_card = cs.run_schedule(dict(schedule), device="cuda", **kw)
+    placed = cs.result_placement()
+    on_cpu = cs.run_schedule(dict(schedule), device="cpu", **kw)
+    for key in ("outcome", "ops_ok"):
+        assert on_card[key] == on_cpu[key], (key, on_card, on_cpu)
+    assert not on_card["hangs"] and not on_card["incorrect"], on_card
+    assert {s: [r["triggers"] for r in rules]
+            for s, rules in on_card["failpoint_triggers"].items()} == \
+        {s: [r["triggers"] for r in rules]
+         for s, rules in on_cpu["failpoint_triggers"].items()}
+    grew = {d: {k: n - placed0.get(d, {}).get(k, 0) for k, n in by.items()}
+            for d, by in placed.items()}
+    assert grew.get("cuda:0", {}).get("yes", 0) > 0, grew
+    assert all(n == 0 for d, by in grew.items() for k, n in by.items()
+               if (d, k) != ("cuda:0", "yes")), grew
+
+
+def test_dead_rank_cannot_wedge_a_survivors_stream(cuda):
+    """A rank dies with a collective in flight: the survivor's handle
+    fails within the exchange timeout, and the card then drains (the
+    survivor's stream never waits on an event of the dead rank's)."""
+    import threading
+
+    import numpy as np
+
+    from horovod_tpu_torch.tools import chaos_soak as cs
+    world = cs.ChaosWorld(3, stall_shutdown_s=2.0, exchange_timeout_s=4.0,
+                          device="cuda")
+    errors = {}
+    try:
+        def go(r):
+            try:
+                world.collective(r, "allreduce", "wedge.t",
+                                 np.full((65,), r + 1.0, np.float32), 0,
+                                 20.0)
+            except Exception as e:   # the death surfaces as an error
+                errors[r] = e
+        ts = [threading.Thread(target=go, args=(r,)) for r in (0, 1)]
+        for t in ts:
+            t.start()
+        time.sleep(0.2)
+        world.kill_rank(2)
+        for t in ts:
+            t.join(timeout=20)
+        assert not any(t.is_alive() for t in ts), "a survivor hung"
+        assert sorted(errors) == [0, 1], errors
+        done = threading.Event()
+        threading.Thread(target=lambda: (torch.cuda.synchronize(),
+                                         done.set()), daemon=True).start()
+        assert done.wait(10.0), "the card did not drain"
+    finally:
+        world.close()

@@ -5,6 +5,7 @@ without torch."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -144,7 +145,7 @@ def test_scan_covers_the_entry_points(subdir):
 
 TOOLS = ("validate_trace", "blackbox_merge", "tune_report", "hvdtop",
          "flame", "measure_torch_staging", "measure_elastic",
-         "profile_resnet")
+         "profile_resnet", "chaos_soak")
 # What the operator tools must not load: the JAX stack, the JAX package,
 # and the root's ``tools`` and ``bench`` (the JAX package's own tools).
 TOOLS_FORBIDDEN = FORBIDDEN + ("tools", "bench")
@@ -179,6 +180,20 @@ def test_tool_imports_no_jax_reference_root_tools_or_bench(tool):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout
+
+
+def test_chaos_soak_names_no_root_tools_path():
+    """The port's chaos soak reaches ``hvdtop``, ``blackbox_merge`` and
+    ``validate_trace`` as modules of its own package: its source edits no
+    ``sys.path`` and names no path under the root's ``tools/``."""
+    path = os.path.join(REPO, "horovod_tpu_torch", "tools", "chaos_soak.py")
+    with open(path) as f:
+        src = f.read()
+    assert re.findall(r"(?<!horovod_tpu_torch/)\btools/", src) == []
+    assert "sys.path" not in src
+    assert "from horovod_tpu_torch.tools import hvdtop" in src
+    assert "from horovod_tpu_torch.tools import blackbox_merge, " \
+        "validate_trace" in src
 
 
 def test_tools_are_the_eight():
