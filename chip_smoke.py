@@ -2,7 +2,8 @@
 the native C++ coordinator from this checkout, holds each kernel against
 its plain PyTorch version, checks the GPT-2-small model at full width,
 trains it through ``hvd.torch`` in a world of one (its last step under
-the device trace), runs the NCCL backend in a world of one (made and
+the device trace), takes many device traces in a row around one flash
+call, each of which must hold the kernel, runs the NCCL backend in a world of one (made and
 destroyed three times, as an elastic reset does), trains it at two ranks
 sharing the card under the native coordinator and then under each
 coordinator in turns, trains it elastically at 2, 3 and 2 ranks,
@@ -20,7 +21,9 @@ example and the PyTorch synthetic benchmark from
 the port's ``horovod`` alias, and runs the operator tools of
 ``horovod_tpu_torch/tools/`` against live ranks on the card, and soaks
 the port's control plane under seeded faults and rank, relay and
-trainer deaths with the data plane on the card.
+trainer deaths with the data plane on the card, and last runs the
+port's static-analysis gate (``python -m
+horovod_tpu_torch.tools.hvdlint --check all``) on this tree.
 
     python3 chip_smoke.py
 
@@ -185,6 +188,7 @@ from horovod_tpu_torch.checkpoint import (  # noqa: E402
     committed_steps, preemption, read_manifest, step_dir)
 from horovod_tpu_torch.common import basics  # noqa: E402
 from horovod_tpu_torch.common import failpoints, straggler  # noqa: E402
+from horovod_tpu_torch.common import timeline  # noqa: E402
 from horovod_tpu_torch.common.timeline import (  # noqa: E402
     start_xla_trace, stop_xla_trace)
 from horovod_tpu_torch.common.fusion import fuse_responses  # noqa: E402
@@ -205,6 +209,7 @@ STEPS = 6
 STEPS_2RANK = 4
 KERAS_REDUCER_SEED = 200  # keras_reducer's gradients: seed + rank
 BATCH, SEQ = 8, 1024
+TRACE_REPEATS = 100  # trace_repeat's traces of each kind
 BERT_BATCH, BERT_SEQ = 16, 512    # sharded_train's BERT-base batch
 ADASUM_BATCH, ADASUM_SEQ = 8, 128  # the examples phase's BERT-large batch
 BERT_LARGE_BH = ADASUM_BATCH * 16  # its attention calls: 16 heads a row
@@ -622,6 +627,62 @@ def phase_train():
                        "device_ms_by_category":
                        profile_step.ms_by_category(by_name),
                        "flash_kernel_ms": flash_traced})
+
+
+def phase_trace_repeat():
+    """The device trace keeps what ran on the card every time:
+    ``TRACE_REPEATS`` traces in a row, each ``start_xla_trace`` /
+    ``stop_xla_trace`` around one flash call at GPT-2 small's attention
+    shape, must each hold the wgmma kernel's device event.  In turn with
+    them, ten of each kind at a time, run as many traces with the
+    window's margins at 0 (the trace as it was before them; not gated),
+    so the line gives what the margins cost: each kind's misses and the
+    host seconds of its starts and stops.  These launches belong to no
+    main path."""
+    q, k, v = qkv(BATCH * 12, SEQ, SEQ, 64, torch.bfloat16, seed=5)
+    fa.flash_attention_cuda(q, k, v, 0.125, True)
+    torch.cuda.synchronize()
+    margin = timeline.DEVICE_WINDOW_MARGIN_S
+    runs = {"margin": [], "no_margin": []}
+    with tempfile.TemporaryDirectory() as trace_dir:
+        try:
+            for i in range(2 * TRACE_REPEATS):
+                # Blocks of ten of each kind: a start's cost may depend
+                # on the stop before it, so the later-start figures
+                # below take only starts that follow their own kind.
+                off = (i // 10) % 2
+                kind = "no_margin" if off else "margin"
+                timeline.DEVICE_WINDOW_MARGIN_S = 0.0 if off else margin
+                t0 = time.perf_counter()
+                start_xla_trace(os.path.join(trace_dir, str(i)))
+                t1 = time.perf_counter()
+                fa.flash_attention_cuda(q, k, v, 0.125, True)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                path = stop_xla_trace()
+                t3 = time.perf_counter()
+                events = sum(1 for n in profile_step.device_ms_by_name(path)
+                             if "flash_fwd_wgmma_kernel" in n)
+                os.remove(path)
+                runs[kind].append((events, t1 - t0, t3 - t2, i % 10))
+        finally:
+            timeline.DEVICE_WINDOW_MARGIN_S = margin
+    report = {}
+    for kind, rows in runs.items():
+        starts = sorted(r[1] for r in rows if r[3])
+        stops = sorted(r[2] for r in rows)
+        report[kind] = {
+            "traces": len(rows),
+            "misses": [i for i, r in enumerate(rows) if r[0] != 1],
+            "later_start_s": {"median": statistics.median(starts),
+                              "p90": starts[int(0.9 * len(starts))],
+                              "max": starts[-1]},
+            "stop_s": {"median": statistics.median(stops),
+                       "p90": stops[int(0.9 * len(stops))],
+                       "max": stops[-1]}}
+    emit("trace_repeat", shape=[BATCH * 12, SEQ, 64], dtype="bf16",
+         margin_s=margin, **report)
+    assert report["margin"]["misses"] == [], report["margin"]
 
 
 def gpt2_small_gradient_shapes():
@@ -4421,6 +4482,35 @@ def phase_chaos() -> dict:
     return launches
 
 
+def phase_lint() -> dict:
+    """The port's static-analysis gate on the tree this card runs:
+    ``python -m horovod_tpu_torch.tools.hvdlint --check all`` as a user
+    runs it, against the committed baseline.  The line gives its exit
+    code, seconds and the counts its output names (new violations and
+    stale baseline entries, grandfathered violations), and the files in
+    the gate's scope.  Gate: exit code 0.  It launches neither kernel."""
+    from horovod_tpu_torch.tools import hvdlint
+    flash0, fusion0 = fa.launches, sum(fb.launches.values())
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.tools.hvdlint",
+         "--check", "all"], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    grandfathered = [int(m.group(1)) for m in (
+        re.match(r"hvdlint: (\d+) grandfathered", ln) for ln in lines) if m]
+    launches = {"flash": fa.launches - flash0,
+                "fusion": sum(fb.launches.values()) - fusion0}
+    emit("lint", rc=proc.returncode,
+         files_scanned=len(hvdlint.Project.from_root(REPO).files),
+         violations=sum(ln.startswith(("NEW ", "STALE ")) for ln in lines),
+         grandfathered=sum(grandfathered), seconds=seconds)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert launches == {"flash": 0, "fusion": 0}, launches
+    return launches
+
+
 def main():
     global CARD
     if not torch.cuda.is_available():
@@ -4472,6 +4562,7 @@ def main():
     fusion_row = timed(phase_fusion_kernel)
     timed(phase_model_parity)
     timed(phase_train)
+    timed(phase_trace_repeat)
     timed(phase_nccl_world1)
     launches, first_native = timed(phase_train_2rank)
     coordinator = timed(phase_coordinator, first_native)
@@ -4485,12 +4576,14 @@ def main():
     examples = timed(phase_examples)
     tools = timed(phase_tools)
     chaos = timed(phase_chaos)
+    lint = timed(phase_lint)
     paths = {"train_2rank": launches, "coordinator": coordinator,
              "elastic": elastic, "tune_durable": durable,
              "sharded_train": sharded, "resnet50": resnet50,
              "context_parallel": context_parallel,
              "dlrm_serve": dlrm_serve, "spark_estimator": spark_estimator,
-             "examples": examples, "tools": tools, "chaos": chaos}
+             "examples": examples, "tools": tools, "chaos": chaos,
+             "lint": lint}
     for row, kernel in ((flash_row, "flash"), (fusion_row, "fusion")):
         row["launches"] = sum(p[kernel] for p in paths.values())
         row["launches_by_path"] = {name: p[kernel]

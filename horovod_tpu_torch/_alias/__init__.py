@@ -42,5 +42,7 @@ def install():
     if ALIAS_DIR in sys.path:
         sys.path.remove(ALIAS_DIR)
     sys.path.insert(0, ALIAS_DIR)
-    os.environ["PYTHONPATH"] = worker_pythonpath(
-        os.environ.get("PYTHONPATH"))
+    # hvdlint: env-ok(PYTHONPATH is passed through to the children with
+    # the alias put first, not a Horovod knob)
+    inherited = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = worker_pythonpath(inherited)

@@ -180,9 +180,18 @@ class Timeline:
             self.writer = None
 
 
-# The running device trace of start_xla_trace: (profiler, log_dir).
+# The running device trace of start_xla_trace: (profiler, log_dir,
+# whether it traces the card).
 _device_trace = None
 _device_trace_lock = threading.Lock()
+# Host seconds a trace of the card waits after it starts and before it
+# stops.  The profiler keeps a device event only when its time, taken
+# on the card and converted to the host's clock, falls inside the
+# window; work at either edge of it (one kernel launched as the trace
+# starts and synchronized just before it stops) then came back, now
+# and then, without its device event.  The margins keep the traced work
+# well inside the window.
+DEVICE_WINDOW_MARGIN_S = 0.01
 
 
 def start_xla_trace(log_dir: str):
@@ -192,8 +201,10 @@ def start_xla_trace(log_dir: str):
     Chrome trace (chrome://tracing, Perfetto).  The JAX package's name
     and contract (there ``jax.profiler``): a second start before a stop
     raises.  Complements host spans the way the reference's GPU event
-    queue does (ops/gpu_operations.h:110-119)."""
+    queue does (ops/gpu_operations.h:110-119).  On the card the window
+    opens :data:`DEVICE_WINDOW_MARGIN_S` before this returns."""
     global _device_trace
+    import torch
     from torch.profiler import ProfilerActivity, profile, \
         supported_activities
     with _device_trace_lock:
@@ -201,10 +212,14 @@ def start_xla_trace(log_dir: str):
             raise RuntimeError("a device trace is already running "
                                f"(into {_device_trace[1]})")
         wanted = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
-        prof = profile(activities=[a for a in wanted
-                                   if a in supported_activities()])
+        activities = [a for a in wanted if a in supported_activities()]
+        on_card = ProfilerActivity.CUDA in activities and \
+            torch.cuda.is_available()
+        prof = profile(activities=activities)
         prof.start()
-        _device_trace = (prof, log_dir)
+        if on_card:
+            time.sleep(DEVICE_WINDOW_MARGIN_S)
+        _device_trace = (prof, log_dir, on_card)
 
 
 def stop_xla_trace() -> str:
@@ -223,8 +238,14 @@ def stop_xla_trace() -> str:
         if _device_trace is None:
             raise RuntimeError("no device trace is running "
                                "(start_xla_trace was not called)")
-        prof, log_dir = _device_trace
+        prof, log_dir, on_card = _device_trace
         _device_trace = None
+        if on_card:
+            # Every kernel enqueued inside the window finishes, and the
+            # window closes a margin after the last one.
+            import torch
+            torch.cuda.synchronize()
+            time.sleep(DEVICE_WINDOW_MARGIN_S)
         prof.stop()
         os.makedirs(log_dir, exist_ok=True)
         path = os.path.join(log_dir, "%s.%d.%d.pt.trace.json" % (

@@ -40,6 +40,8 @@ def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
+    # hvdlint: env-ok(CUDA_HOME and CUDA_PATH locate the CUDA toolkit:
+    # the toolchain's own variables, not Horovod knobs)
     for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
                  "/usr/local/cuda"):
         if home and os.path.exists(os.path.join(home, "bin", "nvcc")):

@@ -16,9 +16,15 @@ printed keys:
 * ``profile_resnet``: ResNet-50's step time, achieved TFLOP/s and MFU;
 * ``chaos_soak``: seeded fault schedules and the kill, wedge, relay,
   checkpoint, serve, tune and autoscale drills against the control
-  plane, with the simulated data plane on the card.
+  plane, with the simulated data plane on the card;
+* ``hvdlint``: the port's static-analysis gate, five AST checks over
+  ``horovod_tpu_torch/`` and ``chip_smoke.py`` against the port's own
+  knob, metric and failpoint catalogs (``horovod_tpu_torch/docs/``)
+  and an empty baseline (``python -m horovod_tpu_torch.tools.hvdlint
+  --check all``).
 
-The last four run on the card unless ``--device cpu`` is given.  Every
+``measure_torch_staging``, ``measure_elastic``, ``profile_resnet`` and
+``chaos_soak`` run on the card unless ``--device cpu`` is given.  Every
 module imports only the standard library, numpy, torch and the port at
-import.
+import; ``hvdlint`` imports the standard library only.
 """

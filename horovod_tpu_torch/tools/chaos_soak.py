@@ -66,6 +66,7 @@ import torch
 
 from horovod_tpu_torch.common import failpoints, metrics
 from horovod_tpu_torch.common import flight_recorder
+from horovod_tpu_torch.common import env as env_mod
 from horovod_tpu_torch.common.env import Knobs
 from horovod_tpu_torch.common.message import (Request, RequestType,
                                               dtype_of)
@@ -392,6 +393,8 @@ class ChaosWorld:
             raise
 
     def _set_env(self, key, value):
+        # hvdlint: env-ok(saves whatever value the drill overrides, to
+        # restore it on close: a passthrough of any key, not a knob parse)
         self._saved_env.setdefault(key, os.environ.get(key))
         if value is None:
             os.environ.pop(key, None)
@@ -1081,6 +1084,8 @@ def run_straggler_drill(mode: str = "negotiation", ranks: int = 8,
     for key, value in (("HOROVOD_STRAGGLER_THRESHOLD",
                         repr(threshold)),
                        ("HOROVOD_STRAGGLER_MIN_LAG", repr(min_lag_s))):
+        # hvdlint: env-ok(saves the overridden value to restore it after
+        # the drill, not a knob parse)
         saved_env[key] = os.environ.get(key)
         os.environ[key] = value
     _sg.configure(enabled=True)
@@ -1791,7 +1796,7 @@ def run_delta_chain_drill(ranks: int = 4, seed: int = 0,
     owned_dir = ckpt_dir is None
     if owned_dir:
         ckpt_dir = tempfile.mkdtemp(prefix="hvd-delta-drill-")
-    old_env = os.environ.get("HOROVOD_CKPT_DELTA_CHAIN_MAX")
+    old_env = env_mod.env_str_opt(env_mod.HOROVOD_CKPT_DELTA_CHAIN_MAX)
     os.environ["HOROVOD_CKPT_DELTA_CHAIN_MAX"] = str(chain_max)
     shape = (257,)
 
@@ -2009,7 +2014,7 @@ def run_serve_drill(ranks: int = 4, seed: int = 0, steps: int = 18,
 
     failpoints.set_crash_handler(crash_handler)
     ckpt_dir = tempfile.mkdtemp(prefix="hvd-serve-drill-")
-    old_poll = os.environ.get("HOROVOD_SERVE_POLL_SECONDS")
+    old_poll = env_mod.env_str_opt(env_mod.HOROVOD_SERVE_POLL_SECONDS)
     os.environ["HOROVOD_SERVE_POLL_SECONDS"] = "0.02"
     errors = []
 
@@ -2773,6 +2778,8 @@ def run_autoscale_drill(ranks: int = 8, grow_to: int = 16,
         env_overrides["HOROVOD_STRAGGLER_THRESHOLD"] = repr(threshold)
         env_overrides["HOROVOD_STRAGGLER_MIN_LAG"] = repr(min_lag_s)
     for key, value in env_overrides.items():
+        # hvdlint: env-ok(saves the overridden value to restore it after
+        # the drill, not a knob parse)
         saved_env[key] = os.environ.get(key)
         os.environ[key] = value
     if real_scorer:
@@ -3785,8 +3792,7 @@ def main(argv=None) -> int:
         print("CHAOSJSON " + json.dumps(summary))
         return 0 if report["ok"] else 1
     if args.relay_scale:
-        ranks = int(os.environ.get("HOROVOD_CHAOS_SCALE_RANKS",
-                                   "64"))
+        ranks = int(env_mod.env_str("HOROVOD_CHAOS_SCALE_RANKS", "64"))
         fanout = args.fanout or 8
         report = run_relay_drill(fault="kill", when="negotiation",
                                  ranks=ranks, fanout=fanout,

@@ -34,7 +34,6 @@ file and SVG for the same payloads.
 
 import argparse
 import json
-import os
 import sys
 import time
 import urllib.error
@@ -205,10 +204,9 @@ def main(argv=None) -> int:
                    help="write the merged collapsed-stack file here")
     p.add_argument("--svg", default=None,
                    help="write the SVG flamegraph here")
-    p.add_argument("--secret", default=os.environ.get(
-        "HOROVOD_SECRET_KEY", ""),
-        help="job secret for signed URL fetches "
-             "(default: HOROVOD_SECRET_KEY)")
+    p.add_argument("--secret", default=job_secret.current() or "",
+                   help="job secret for signed URL fetches "
+                        "(default: HOROVOD_SECRET_KEY)")
     p.add_argument("--width", type=int, default=1200,
                    help="SVG width in px")
     args = p.parse_args(argv)

@@ -24,7 +24,6 @@ the same ``/status``.
 
 import argparse
 import json
-import os
 import sys
 import time
 import urllib.error
@@ -213,9 +212,9 @@ def main(argv=None) -> int:
     p.add_argument("--url", default="http://127.0.0.1:9090",
                    help="metrics/status endpoint base URL (rank 0 for "
                         "the cluster view)")
-    p.add_argument("--secret", default=os.environ.get(
-        "HOROVOD_SECRET_KEY", ""),
-        help="job secret for HMAC signing (default: HOROVOD_SECRET_KEY)")
+    p.add_argument("--secret", default=job_secret.current() or "",
+                   help="job secret for HMAC signing "
+                        "(default: HOROVOD_SECRET_KEY)")
     p.add_argument("--interval", type=float, default=2.0,
                    help="refresh cadence, seconds")
     p.add_argument("--timeout", type=float, default=5.0,

@@ -261,6 +261,32 @@ def test_negotiation_scale_probe_shape_and_fanout_bound():
     assert sorted(tree) == sorted(theirs)
 
 
+@pytest.mark.parametrize("value,ranks", [
+    (None, 64), ("12", 12), ("", ValueError), ("6x4", ValueError)])
+def test_relay_scale_ranks_knob_parses_as_the_jax_tool(monkeypatch, value,
+                                                       ranks):
+    """``--relay-scale`` reads HOROVOD_CHAOS_SCALE_RANKS as the JAX tool
+    does: 64 when unset, and an empty or malformed value raises instead
+    of running the default probe."""
+    if value is None:
+        monkeypatch.delenv("HOROVOD_CHAOS_SCALE_RANKS", raising=False)
+    else:
+        monkeypatch.setenv("HOROVOD_CHAOS_SCALE_RANKS", value)
+    for mod, argv in ((cs, ["--relay-scale", "--device", CPU]),
+                      (_jax(), ["--relay-scale"])):
+        seen = []
+        monkeypatch.setattr(mod, "run_relay_drill",
+                            lambda **kw: seen.append(kw["ranks"])
+                            or {"ok": True})
+        if ranks is ValueError:
+            with pytest.raises(ValueError):
+                mod.main(argv)
+            assert seen == []
+        else:
+            assert mod.main(argv) == 0
+            assert seen == [ranks]
+
+
 # ---------------------------------------------------------------------------
 # straggler attribution (tests/test_straggler.py)
 # ---------------------------------------------------------------------------

@@ -131,6 +131,29 @@ def test_device_trace_names_the_flash_kernel(cuda, tmp_path):
     assert profile_step.ms_by_category(by_name)["flash_fwd"] > 0
 
 
+def test_every_device_trace_in_a_row_holds_the_card(cuda, tmp_path):
+    """A hundred traces in a row in this process, each around one flash
+    call: every one holds the kernel (such a trace once came back
+    without its device event)."""
+    from horovod_tpu_torch import profile_step
+    from horovod_tpu_torch.common import timeline
+    q, k, v = _qkv(cuda, 96, 1024, 1024, 64, torch.bfloat16)
+    fa.flash_attention_cuda(q, k, v, 0.125, True)
+    torch.cuda.synchronize()
+    kernels_per_trace = []
+    for i in range(100):
+        timeline.start_xla_trace(str(tmp_path / str(i)))
+        try:
+            fa.flash_attention_cuda(q, k, v, 0.125, True)
+            torch.cuda.synchronize()
+        finally:
+            path = timeline.stop_xla_trace()
+        by_name = profile_step.device_ms_by_name(path)
+        kernels_per_trace.append(
+            sum(1 for n in by_name if "flash_fwd_wgmma_kernel" in n))
+    assert kernels_per_trace == [1] * 100, kernels_per_trace
+
+
 def test_tiny_gpt_flash_matches_einsum_on_card(cuda):
     cfg = gpt.gpt_tiny_config(dtype=torch.float32, dropout=0.0)
     einsum = gpt.GPTLMHeadModel(cfg, device=cuda, seed=0).eval()

@@ -120,10 +120,10 @@ def run(cmd, cwd, env, timeout=LAUNCH_TIMEOUT_S):
 
 
 def launch(pkg, np_, script, args, tmp, elastic=False, python_args=(),
-           **env_extra):
+           timeout=LAUNCH_TIMEOUT_S, **env_extra):
     """``python -m <pkg>.runner.launch -np N ... python <script> args``
-    from ``tmp``; with ``elastic`` through a discovery script that
-    reports ``localhost:N``."""
+    from ``tmp``, killed past ``timeout``; with ``elastic`` through a
+    discovery script that reports ``localhost:N``."""
     tmp.mkdir(parents=True, exist_ok=True)
     cmd = [sys.executable, "-m", f"{pkg}.runner.launch", "-np", str(np_)]
     if elastic:
@@ -136,7 +136,7 @@ def launch(pkg, np_, script, args, tmp, elastic=False, python_args=(),
     else:
         cmd += ["-H", f"localhost:{np_}"]
     cmd += [sys.executable, *python_args, script, *args]
-    return run(cmd, str(tmp), env_for(tmp, **env_extra))
+    return run(cmd, str(tmp), env_for(tmp, **env_extra), timeout)
 
 
 def stdout_lines(out):

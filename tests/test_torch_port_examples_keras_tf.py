@@ -64,6 +64,15 @@ TF_ELASTIC_ARGS = ["--model", "simple", "--image-size", "32",
                    "--batch-size", "2", "--num-warmup-batches", "1",
                    "--num-batches-per-iter", "1", "--num-iters", "2"]
 ESTIMATOR_ARGS = ["--epochs", "2", "--num-proc", "2", "--run-id", "ex"]
+# The estimator example fits twice (a fit, then a resume), each through
+# LocalBackend(2): the launched rank, then two fresh ranks for each fit,
+# every one importing Keras and torch.  Alone on the CPU its launch
+# takes 59 to 72 s where every other launch here takes 20 to 30 s, so
+# the shared LAUNCH_TIMEOUT_S leaves it the least headroom of the
+# module: under load it is the first launch to cross the limit.  It
+# gets the same headroom over its own time as the others get over
+# theirs.
+ESTIMATOR_TIMEOUT_S = 3 * LAUNCH_TIMEOUT_S
 CPU = ["--device", "cpu"]
 
 
@@ -78,11 +87,13 @@ def _jobs(tmp):
         "estimator_jax": (
             "horovod_tpu", 1, jax(estimator), ESTIMATOR_ARGS + [
                 "--work-dir", str(tmp / "est_jax" / "store")],
-            tmp / "est_jax", dict(KERAS, python_args=("-c", _SEEDED))),
+            tmp / "est_jax", dict(KERAS, python_args=("-c", _SEEDED),
+                                  timeout=ESTIMATOR_TIMEOUT_S)),
         "estimator_port": (
             "horovod_tpu_torch", 1, port(estimator), ESTIMATOR_ARGS + CPU + [
                 "--work-dir", str(tmp / "est_port" / "store")],
-            tmp / "est_port", dict(KERAS, python_args=("-c", _SEEDED))),
+            tmp / "est_port", dict(KERAS, python_args=("-c", _SEEDED),
+                                   timeout=ESTIMATOR_TIMEOUT_S)),
         "mnist_jax": ("horovod_tpu", 2, jax(mnist), MNIST_ARGS,
                       tmp / "mnist_jax", KERAS),
         "mnist_port": ("horovod_tpu_torch", 2, port(mnist), MNIST_ARGS + CPU,
@@ -118,7 +129,8 @@ def runs(tmp_path_factory):
 
     class Results(dict):
         def __missing__(self, name):
-            value = futures[name].result(timeout=3 * LAUNCH_TIMEOUT_S)
+            value = futures[name].result(
+                timeout=ESTIMATOR_TIMEOUT_S + 3 * LAUNCH_TIMEOUT_S)
             self[name] = value
             return value
 
