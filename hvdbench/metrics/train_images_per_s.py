@@ -1,0 +1,6 @@
+"""Images of all ranks' steps completed in the window, over its seconds."""
+from hvdbench import readers
+
+
+def read(run):
+    return readers.rows_done(run) / readers.window_s(run)
