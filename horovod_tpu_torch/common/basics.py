@@ -34,6 +34,7 @@ import threading
 from typing import List, Optional, Sequence
 
 from . import env as env_mod
+from . import timeline as _tl
 from .env import Knobs, RankInfo
 from .exceptions import NotInitializedError
 
@@ -200,6 +201,14 @@ def init(comm=None, process_sets=None):
                     if getattr(ps, "process_set_id", -1) in (-1, None):
                         add_process_set(ps)
             return
+        with _tl.span("hvd.init", always=True):
+            _init(state, comm, process_sets)
+
+
+def _init(state: HorovodTpuState, comm, process_sets):
+    """:func:`init`'s work under the state's lock: its phases are
+    program spans (``common/timeline.py``), recorded always."""
+    with _tl.span("init.rendezvous", always=True):
         state.knobs = Knobs.from_env()
         # Opt-in lock-order witness (docs/static_analysis.md): arm
         # BEFORE any control-plane object constructs its locks so the
@@ -254,9 +263,11 @@ def init(comm=None, process_sets=None):
             os.environ["HOROVOD_CONTROLLER_ADDR"] = \
                 eps["controller_addr"]
 
-        if state.rank_info.size > 1:
+    if state.rank_info.size > 1:
+        with _tl.span("init.process_group", always=True):
             state.process_group_owned = _init_process_group(state)
 
+    with _tl.span("init.arming", always=True):
         # Failpoint rank= predicates resolve against the final rank of
         # this incarnation (elastic rendezvous above may have changed
         # the env contract since import time).
@@ -279,16 +290,18 @@ def init(comm=None, process_sets=None):
         profiler_mod.set_rank(state.rank_info.rank)
         slo_mod.set_rank(state.rank_info.rank)
 
+    with _tl.span("init.backend", always=True):
         from ..ops.backend import create_backend
         state.backend = create_backend(state)
 
+    with _tl.span("init.runtime", always=True):
         from .runtime import BackgroundRuntime
         state.runtime = BackgroundRuntime(state)
         state.runtime.start()
 
+    with _tl.span("init.metrics", always=True):
         if state.knobs.timeline:
-            from .timeline import Timeline
-            state.timeline = Timeline(
+            state.timeline = _tl.Timeline(
                 state.knobs.timeline, rank=state.rank_info.rank,
                 mark_cycles=state.knobs.timeline_mark_cycles)
             state.runtime.timeline = state.timeline
@@ -318,15 +331,15 @@ def init(comm=None, process_sets=None):
                     "could not start the /metrics endpoint on port %d",
                     port, exc_info=True)
 
-        if process_sets:
-            for ps in process_sets:
-                add_process_set(ps)
+    if process_sets:
+        for ps in process_sets:
+            add_process_set(ps)
 
-        state.init_generation += 1
-        state.initialized = True
-        logger.debug("horovod_tpu_torch initialized: rank=%d size=%d "
-                     "local=%d/%d", state.rank_info.rank, state.rank_info.size,
-                     state.rank_info.local_rank, state.rank_info.local_size)
+    state.init_generation += 1
+    state.initialized = True
+    logger.debug("horovod_tpu_torch initialized: rank=%d size=%d "
+                 "local=%d/%d", state.rank_info.rank, state.rank_info.size,
+                 state.rank_info.local_rank, state.rank_info.local_size)
 
 
 def shutdown():
@@ -617,11 +630,10 @@ def start_timeline(file_path: str, mark_cycles: bool = False):
     horovod_start_timeline, operations.cc:738-764)."""
     state = _state()
     state.require_init()
-    from .timeline import Timeline
     if state.timeline is not None:
         state.timeline.close()
-    state.timeline = Timeline(file_path, rank=state.rank_info.rank,
-                              mark_cycles=mark_cycles)
+    state.timeline = _tl.Timeline(file_path, rank=state.rank_info.rank,
+                                  mark_cycles=mark_cycles)
     if state.runtime is not None:
         state.runtime.timeline = state.timeline
 

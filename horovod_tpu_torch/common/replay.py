@@ -100,6 +100,7 @@ from typing import List, Optional, Tuple
 from . import failpoints as _fp
 from . import flight_recorder as _fr
 from . import metrics
+from . import timeline as _tl
 from .message import Request, RequestType, Response, ResponseType
 from .response_cache import request_signature
 
@@ -299,6 +300,9 @@ class SteadyStateReplay:
                 # negotiation.
                 runtime.timeline.negotiate_start(req.tensor_name,
                                                  "REPLAY")
+            _tl.begin_span((req.process_set_id, req.tensor_name),
+                           "negotiate", tensor=req.tensor_name,
+                           op="REPLAY")
             self._batch_reqs.append(req)
             if len(self._batch_reqs) == len(batch.keys):
                 self._batch_reqs = []

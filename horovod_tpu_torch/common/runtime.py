@@ -319,6 +319,9 @@ class BackgroundRuntime:
         if self.timeline:
             self.timeline.negotiate_start(
                 request.tensor_name, request.request_type.name)
+        tl.begin_span((request.process_set_id, request.tensor_name),
+                      "negotiate", tensor=request.tensor_name,
+                      op=request.request_type.name)
         # Inline fast path only from an IDLE table: during an async
         # burst (N grads submitted before any completes) the first op
         # goes inline and the rest queue, so the background drain sends
@@ -393,6 +396,9 @@ class BackgroundRuntime:
                 # tensor name, so every name must open one here.
                 self.timeline.negotiate_start(
                     request.tensor_name, request.request_type.name)
+            tl.begin_span((request.process_set_id, request.tensor_name),
+                          "negotiate", tensor=request.tensor_name,
+                          op=request.request_type.name)
         self.tensor_queue.add_multi(requests, entries)
         self._wake.set()
 
@@ -621,6 +627,7 @@ class BackgroundRuntime:
                 self.stall_inspector.remove(name)
             if self.timeline:
                 self.timeline.negotiate_end(name)
+            tl.end_span((resp.process_set_id, name))
 
         if resp.response_type == ResponseType.ERROR:
             err = RuntimeError(resp.error_message)
@@ -645,11 +652,18 @@ class BackgroundRuntime:
         if self.timeline:
             self.timeline.counter("fused_bytes", {"bytes": int(sum(
                 e.tensor.nbytes for e in entries))})
+        collective = tl.NO_SPAN
+        if tl.recording():
+            collective = tl.span(
+                "collective", op=resp.response_type.name,
+                tensors=len(entries), bytes=sum(
+                    e.tensor.nbytes for e in entries
+                    if e.tensor is not None))
         try:
             if self.timeline:
                 self.timeline.start_activity(
                     tl_name, f"TORCH_{resp.response_type.name}")
-            with self._data_stream(entries) as stream:
+            with collective, self._data_stream(entries) as stream:
                 results = self._execute(backend, resp, entries, ps_ranks)
                 if stream is not None:
                     done = torch.cuda.Event()

@@ -8,6 +8,7 @@ tensors so they renegotiate).
 """
 
 import logging
+import threading
 import time
 from typing import Dict, List, Set, Tuple
 
@@ -28,9 +29,12 @@ class StallInspector:
         self.warning_time_s = warning_time_s
         self.shutdown_time_s = shutdown_time_s
         self.world_size = world_size
-        # tensor name -> (first seen ts, set of ranks that reported)
+        # tensor name -> (first seen ts, set of ranks that reported).
+        # The submitting thread and the dispatching one record and
+        # remove while the background cycle checks: all under _lock.
         self._uncompleted: Dict[str, Tuple[float, Set[int]]] = {}
         self._warned: Set[str] = set()
+        self._lock = threading.Lock()
         # Optional live-straggler hook (common/straggler.py): when the
         # coordinator's scorer is armed on this rank, warnings name
         # the current top straggler so "everyone blocked on a slow
@@ -79,9 +83,10 @@ class StallInspector:
 
     def record_uncached_tensor(self, name: str, rank: int):
         now = time.monotonic()
-        ts, ranks = self._uncompleted.get(name, (now, set()))
-        ranks.add(rank)
-        self._uncompleted[name] = (ts, ranks)
+        with self._lock:
+            ts, ranks = self._uncompleted.get(name, (now, set()))
+            ranks.add(rank)
+            self._uncompleted[name] = (ts, ranks)
 
     def record_cached_tensor(self, name: str):
         # Cached tensors bypass negotiation; still track timestamps so a
@@ -89,8 +94,9 @@ class StallInspector:
         self.record_uncached_tensor(name, -1)
 
     def remove(self, name: str):
-        self._uncompleted.pop(name, None)
-        self._warned.discard(name)
+        with self._lock:
+            self._uncompleted.pop(name, None)
+            self._warned.discard(name)
 
     def check(self) -> List[str]:
         """Returns tensor names to invalidate from the response cache;
@@ -98,15 +104,16 @@ class StallInspector:
         now = time.monotonic()
         invalidate = []
         stalled_msgs = []
-        for name, (ts, ranks) in self._uncompleted.items():
+        with self._lock:
+            pending = [(name, ts, sorted(r for r in ranks if r >= 0))
+                       for name, (ts, ranks) in self._uncompleted.items()]
+            warned = set(self._warned)
+        for name, ts, ready in pending:
             age = now - ts
-            if age > self.warning_time_s and name not in self._warned:
-                missing = sorted(set(range(self.world_size)) -
-                                 {r for r in ranks if r >= 0})
+            if age > self.warning_time_s and name not in warned:
+                missing = sorted(set(range(self.world_size)) - set(ready))
                 stalled_msgs.append(
-                    f"{name} [ready: {sorted(r for r in ranks if r >= 0)}, "
-                    f"waiting: {missing}]")
-                self._warned.add(name)
+                    f"{name} [ready: {ready}, waiting: {missing}]")
                 invalidate.append(name)
                 _STALL_WARNINGS.inc()
             if self.shutdown_time_s > 0 and age > self.shutdown_time_s:
@@ -114,6 +121,10 @@ class StallInspector:
                     f"Stalled tensor {name!r} exceeded shutdown threshold "
                     f"({self.shutdown_time_s}s); aborting (set "
                     "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS=0 to disable).")
+        if invalidate:
+            with self._lock:
+                self._warned.update(n for n in invalidate
+                                    if n in self._uncompleted)
         if stalled_msgs:
             # Flight-recorder attribution: what the implicated tensors
             # last DID (submit/frame/replay events from the black-box

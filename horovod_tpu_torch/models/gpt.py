@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..common.timeline import span
 from ..parallel.layers import embed, on_local_shards
 
 
@@ -153,13 +154,16 @@ class GPTBlock(nn.Module):
 
     def forward(self, x):
         cfg = self.config
-        h = self.attention(_layer_norm(x, self.attention_norm, cfg.dtype))
-        x = x + F.dropout(h, cfg.dropout, self.training)
-        m = _dense(_layer_norm(x, self.mlp_norm, cfg.dtype),
-                   self.intermediate, cfg.dtype)
-        m = F.gelu(m, approximate="tanh")
-        m = _dense(m, self.output, cfg.dtype)
-        return x + F.dropout(m, cfg.dropout, self.training)
+        with span("gpt.attention"):
+            h = self.attention(_layer_norm(x, self.attention_norm,
+                                           cfg.dtype))
+            x = x + F.dropout(h, cfg.dropout, self.training)
+        with span("gpt.mlp"):
+            m = _dense(_layer_norm(x, self.mlp_norm, cfg.dtype),
+                       self.intermediate, cfg.dtype)
+            m = F.gelu(m, approximate="tanh")
+            m = _dense(m, self.output, cfg.dtype)
+            return x + F.dropout(m, cfg.dropout, self.training)
 
 
 _DRAW_CHUNK = 1 << 17
@@ -262,34 +266,40 @@ class GPTLMHeadModel(nn.Module):
                 mod.bias.zero_()
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        S = input_ids.shape[1]
-        wte = self.word_embeddings.weight.to(cfg.dtype)
-        # The first S rows of the table (a slice, not a lookup of
-        # arange(S), so that a DTensor table needs no plain index).
-        x = (embed(input_ids, wte) +
-             self.position_embeddings.weight[:S].to(cfg.dtype)[None])
-        x = F.dropout(x, cfg.dropout, self.training)
-        for block in self.layers:
-            if cfg.remat and self.training:
-                x = checkpoint(block, x, use_reentrant=False)
-            else:
-                x = block(x)
-        x = _layer_norm(x, self.final_norm, cfg.dtype)
-        return torch.matmul(x, wte.t()).float()
+        with span("gpt.forward"):
+            cfg = self.config
+            S = input_ids.shape[1]
+            with span("gpt.embed"):
+                wte = self.word_embeddings.weight.to(cfg.dtype)
+                # The first S rows of the table (a slice, not a lookup
+                # of arange(S), so that a DTensor table needs no plain
+                # index).
+                x = (embed(input_ids, wte) +
+                     self.position_embeddings.weight[:S].to(cfg.dtype)[None])
+                x = F.dropout(x, cfg.dropout, self.training)
+            for i, block in enumerate(self.layers):
+                with span("gpt.block", layer=i):
+                    if cfg.remat and self.training:
+                        x = checkpoint(block, x, use_reentrant=False)
+                    else:
+                        x = block(x)
+            with span("gpt.head"):
+                x = _layer_norm(x, self.final_norm, cfg.dtype)
+                return torch.matmul(x, wte.t()).float()
 
 
 def lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross-entropy: position t predicts token t+1.
     ``mask`` (optional) is 1 where the TARGET token counts."""
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
-    targets = input_ids[:, 1:].long()
-    ll = logp.gather(-1, targets[..., None])[..., 0]
-    if mask is None:
-        return -ll.mean()
-    m = mask[:, 1:].float()
-    return -(ll * m).sum() / m.sum().clamp_min(1.0)
+    with span("gpt.loss"):
+        logp = torch.log_softmax(logits[:, :-1], dim=-1)
+        targets = input_ids[:, 1:].long()
+        ll = logp.gather(-1, targets[..., None])[..., 0]
+        if mask is None:
+            return -ll.mean()
+        m = mask[:, 1:].float()
+        return -(ll * m).sum() / m.sum().clamp_min(1.0)
 
 
 def convert_flax_gpt_params(flat: Dict[str, np.ndarray]

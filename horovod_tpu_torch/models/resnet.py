@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..common.timeline import span
 from .gpt import _init_rng, _trunc_normal, resolve_device
 
 
@@ -216,14 +217,18 @@ class ResNet(nn.Module):
         return flax_path(name, type(self.blocks[0]).__name__)
 
     def forward(self, x, train: Optional[bool] = None):
-        train = self.training if train is None else train
-        x = x.to(self.dtype)
-        x = self.act(self.bn_init(self.conv_init(x), train))
-        x = max_pool_same(x, 3, 2)
-        for block in self.blocks:
-            x = block(x, train)
-        x = x.mean(dim=(2, 3))
-        return self.head(x.float())
+        with span("resnet.forward"):
+            train = self.training if train is None else train
+            with span("resnet.stem"):
+                x = x.to(self.dtype)
+                x = self.act(self.bn_init(self.conv_init(x), train))
+                x = max_pool_same(x, 3, 2)
+            for i, block in enumerate(self.blocks):
+                with span("resnet.block", block=i):
+                    x = block(x, train)
+            with span("resnet.head"):
+                x = x.mean(dim=(2, 3))
+                return self.head(x.float())
 
 
 ResNet18 = partial(ResNet, stage_sizes=[2, 2, 2, 2],

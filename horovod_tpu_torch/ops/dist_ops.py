@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..common import metrics
+from ..common.timeline import span
 from . import fusion_buffer as fb
 from .adasum import adasum_allreduce
 from .backend import Backend, even_row_counts
@@ -101,12 +102,14 @@ def process_group_backend(transport: str) -> str:
 def _timed(op: str, nbytes_fn):
     """Records count, payload bytes and host seconds of a collective
     under this backend's name (host seconds: on CUDA the call returns
-    once the work is enqueued)."""
+    once the work is enqueued), and the program span ``<backend>.<op>``
+    (``nccl.allreduce``)."""
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(self, *args, **kwargs):
             t0 = time.perf_counter()
-            result = fn(self, *args, **kwargs)
+            with span(f"{self.name}.{op.lower()}"):
+                result = fn(self, *args, **kwargs)
             metrics.record_collective(self.name, op,
                                       int(nbytes_fn(*args, **kwargs)),
                                       time.perf_counter() - t0)

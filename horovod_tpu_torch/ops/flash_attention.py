@@ -24,6 +24,8 @@ from typing import Optional
 
 import torch
 
+from ..common.timeline import span
+
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -186,24 +188,26 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale, causal, block_q, block_k):
         ctx.save_for_backward(q, k, v)
         ctx.scale, ctx.causal = scale, causal
-        if q.is_cuda:
-            return flash_attention_cuda(q, k, v, scale, causal)
-        return flash_attention_reference(q, k, v, scale, causal,
-                                         block_q, block_k)
+        with span("flash.fwd"):
+            if q.is_cuda:
+                return flash_attention_cuda(q, k, v, scale, causal)
+            return flash_attention_reference(q, k, v, scale, causal,
+                                             block_q, block_k)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        scale = ctx.scale
-        p = _attention_probs(q, k, scale, ctx.causal)
-        do32 = do.float()
-        dv = torch.matmul(p.transpose(1, 2), do32)
-        dp = torch.matmul(do32, v.float().transpose(1, 2))
-        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-        dq = torch.matmul(ds, k.float()) * scale
-        dk = torch.matmul(ds.transpose(1, 2), q.float()) * scale
-        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None)
+        with span("flash.bwd"):
+            q, k, v = ctx.saved_tensors
+            scale = ctx.scale
+            p = _attention_probs(q, k, scale, ctx.causal)
+            do32 = do.float()
+            dv = torch.matmul(p.transpose(1, 2), do32)
+            dp = torch.matmul(do32, v.float().transpose(1, 2))
+            ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+            dq = torch.matmul(ds, k.float()) * scale
+            dk = torch.matmul(ds.transpose(1, 2), q.float()) * scale
+            return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                    None, None, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -24,6 +24,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..common.timeline import span
 from .backend import _scale
 
 ALIGN_BYTES = 16
@@ -118,36 +119,41 @@ def pack(tensors: Sequence[torch.Tensor], prescale: float = 1.0,
     """``scale(t_i, prescale)`` at each tensor's offset of
     :func:`layout` in one flat buffer (``out`` when given, else fresh),
     zeros in the padding.  Returns the flat buffer."""
-    _check(tensors, "pack")
-    dtype, device = tensors[0].dtype, tensors[0].device
-    offsets, total = layout([t.numel() for t in tensors], dtype)
-    flat = _flat_out(out, dtype, device, total, "pack")
-    if flat.is_cuda:
-        per = [(t.data_ptr(), flat.data_ptr() + o * flat.element_size(),
-                t.numel(), end - o)
-               for t, o, end in zip(tensors, offsets, offsets[1:] + [total])]
-        _launch("pack", per, dtype, prescale, device)
-        return flat
-    plain_calls["pack"] += 1
-    return pack_plain(tensors, prescale, flat)
+    with span("fusion.pack"):
+        _check(tensors, "pack")
+        dtype, device = tensors[0].dtype, tensors[0].device
+        offsets, total = layout([t.numel() for t in tensors], dtype)
+        flat = _flat_out(out, dtype, device, total, "pack")
+        if flat.is_cuda:
+            per = [(t.data_ptr(), flat.data_ptr() + o * flat.element_size(),
+                    t.numel(), end - o)
+                   for t, o, end in zip(tensors, offsets,
+                                        offsets[1:] + [total])]
+            _launch("pack", per, dtype, prescale, device)
+            return flat
+        plain_calls["pack"] += 1
+        return pack_plain(tensors, prescale, flat)
 
 
 def unpack(flat: torch.Tensor, outs: Sequence[torch.Tensor],
            postscale: float = 1.0):
     """Each ``outs[i]`` = ``scale(flat[o_i : o_i + n_i], postscale)``, the
     offsets of :func:`layout` over ``outs``."""
-    _check([flat, *outs], "unpack")
-    offsets, total = layout([t.numel() for t in outs], flat.dtype)
-    if flat.dim() != 1 or flat.numel() < total:
-        raise ValueError(f"fusion unpack: the flat buffer holds "
-                         f"{flat.numel()} elements, the outputs need {total}")
-    if flat.is_cuda:
-        per = [(flat.data_ptr() + o * flat.element_size(), t.data_ptr(),
-                t.numel(), t.numel()) for t, o in zip(outs, offsets)]
-        _launch("unpack", per, flat.dtype, postscale, flat.device)
-        return
-    plain_calls["unpack"] += 1
-    unpack_plain(flat, outs, postscale)
+    with span("fusion.unpack"):
+        _check([flat, *outs], "unpack")
+        offsets, total = layout([t.numel() for t in outs], flat.dtype)
+        if flat.dim() != 1 or flat.numel() < total:
+            raise ValueError(f"fusion unpack: the flat buffer holds "
+                             f"{flat.numel()} elements, the outputs need "
+                             f"{total}")
+        if flat.is_cuda:
+            per = [(flat.data_ptr() + o * flat.element_size(),
+                    t.data_ptr(), t.numel(), t.numel())
+                   for t, o in zip(outs, offsets)]
+            _launch("unpack", per, flat.dtype, postscale, flat.device)
+            return
+        plain_calls["unpack"] += 1
+        unpack_plain(flat, outs, postscale)
 
 
 def pack_plain(tensors: Sequence[torch.Tensor], prescale: float = 1.0,

@@ -30,6 +30,7 @@ import torch
 
 from ..common import basics
 from ..common import env as env_mod
+from ..common.timeline import span
 from ..common.basics import (Adasum, Average, Sum, ProcessSet,
                              global_process_set)
 from .. import ops as _ops
@@ -129,6 +130,10 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def synchronize(self):
         """Drain all in-flight gradient reductions (reference:
         torch/optimizer.py:209-236)."""
+        with span("hvd.synchronize"):
+            self._synchronize()
+
+    def _synchronize(self):
         if self._process_set.size() <= 1:
             # Nothing to reduce; hooks registered for an elastic world
             # that shrank to one rank are re-armed for the next step.
@@ -172,15 +177,16 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._should_synchronize = True
 
     def step(self, closure=None):
-        if self._should_synchronize:
-            if self._synchronized:
-                logger.warning(
-                    "optimizer.step() called without a new backward "
-                    "pass after synchronize(); use skip_synchronize() "
-                    "to suppress the duplicate reduction.")
-            self.synchronize()
-        self._synchronized = False
-        return super(self.__class__, self).step(closure)
+        with span("hvd.step"):
+            if self._should_synchronize:
+                if self._synchronized:
+                    logger.warning(
+                        "optimizer.step() called without a new backward "
+                        "pass after synchronize(); use skip_synchronize() "
+                        "to suppress the duplicate reduction.")
+                self.synchronize()
+            self._synchronized = False
+            return super(self.__class__, self).step(closure)
 
     def zero_grad(self, *args, **kwargs):
         if self._handles:
