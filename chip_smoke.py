@@ -147,7 +147,7 @@ kill-mid-negotiation and serve drills with the JAX tier-1 tests'
 arguments.  Every drill must be ok with no hang and no incorrect result,
 every collective's result must sit on ``cuda:0`` in its input's dtype,
 each postmortem must name the victim, and the phase must end within
-150 s.  It launches neither kernel (the ``kernels`` line's
+150 s.  It launches no kernel of this repo (the ``kernels`` line's
 ``launches_by_path`` shows 0 for it).
 """
 
@@ -213,13 +213,16 @@ TRACE_REPEATS = 100  # trace_repeat's traces of each kind
 BERT_BATCH, BERT_SEQ = 16, 512    # sharded_train's BERT-base batch
 ADASUM_BATCH, ADASUM_SEQ = 8, 128  # the examples phase's BERT-large batch
 BERT_LARGE_BH = ADASUM_BATCH * 16  # its attention calls: 16 heads a row
-SOURCES = ("flash_attn_fwd.cu", "fusion_buffer.cu")
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "fusion_buffer.cu")
 FUSION_THRESHOLD = 64 * 1024 * 1024  # HOROVOD_FUSION_THRESHOLD's default
 WORKER_TIMEOUT_S = 600
 # What flash_attn_fwd.cu instantiates of the wgmma body, as kernel_label
 # names it.
 WGMMA_INSTANTIATIONS = sorted(f"wgmma<{t}, {d}>" for t in ("bf16", "fp16")
                               for d in (64, 128))
+# And what flash_attn_bwd.cu instantiates: both kernels at each of them.
+BWD_INSTANTIATIONS = sorted(f"{k}<{t}, {d}>" for k in ("bwd_dq", "bwd_dkdv")
+                            for t in ("bf16", "fp16") for d in (64, 128))
 
 
 def card() -> str:
@@ -284,8 +287,10 @@ def qkv(bh, sq, skv, d, dtype, seed):
 
 
 def kernel_label(mangled: str) -> str:
-    """``wgmma<bf16, 64>`` from a mangled kernel name of flash_attn_fwd.cu."""
-    body = re.search(r"flash_fwd_(fp32|mma|wgmma)_kernel", mangled)
+    """``wgmma<bf16, 64>`` (or ``bwd_dq<bf16, 64>``) from a mangled kernel
+    name of flash_attn_fwd.cu (or flash_attn_bwd.cu)."""
+    body = re.search(r"flash_(?:fwd_)?(fp32|mma|wgmma|bwd_dq|bwd_dkdv)_kernel",
+                     mangled)
     dim = re.search(r"Li(\d+)E", mangled)
     dtype = ("bf16" if "nv_bfloat16" in mangled else
              "fp16" if "__half" in mangled else "fp32")
@@ -324,10 +329,10 @@ def phase_build():
     was built: per flash instantiation
     the HGMMA (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier)
     instructions in its SASS, per kernel its registers and spill bytes
-    from the ptxas log.  Any of the four wgmma instantiations missing,
-    one without HGMMA or UTMALDG, any kernel that spills, a fusion
-    dtype missing, or a log that says setmaxnreg was ignored (C7508)
-    fails the build."""
+    from the ptxas log.  Any of the four wgmma instantiations or the
+    eight backward ones missing, one without HGMMA or UTMALDG, any
+    kernel that spills, a fusion dtype missing, or a log that says
+    setmaxnreg was ignored (C7508) fails the build."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 1) as pool:
         coordinator = pool.submit(build_coordinator)
@@ -350,13 +355,19 @@ def phase_build():
     report, warnings = kernels.build_report("flash_attn_fwd.cu")
     per_kernel = {kernel_label(name): info
                   for name, info in sorted(report.items())}
-    faults = [w for w in warnings if "C7508" in w]
+    bwd_report, bwd_warnings = kernels.build_report("flash_attn_bwd.cu")
+    bwd_kernels = {kernel_label(name): info
+                   for name, info in sorted(bwd_report.items())}
+    faults = [w for w in warnings + bwd_warnings if "C7508" in w]
     found = sorted(label for label in per_kernel if label.startswith("wgmma"))
     if found != WGMMA_INSTANTIATIONS:
         faults.append(f"wgmma instantiations {found}, expected "
                       f"{WGMMA_INSTANTIATIONS}")
-    for label in found:
-        info = per_kernel[label]
+    if sorted(bwd_kernels) != BWD_INSTANTIATIONS:
+        faults.append(f"backward instantiations {sorted(bwd_kernels)}, "
+                      f"expected {BWD_INSTANTIATIONS}")
+    for label, info in [(f, per_kernel[f]) for f in found] + sorted(
+            bwd_kernels.items()):
         if not info.get("HGMMA") or not info.get("UTMALDG"):
             faults.append(f"{label}: no HGMMA or no UTMALDG in its SASS")
         if "spill_bytes" not in info:
@@ -373,6 +384,7 @@ def phase_build():
                            for src in SOURCES],
          nvcc_s=nvcc_s, total_s=time.perf_counter() - t0,
          kernels=per_kernel, ptxas_warnings=warnings,
+         bwd_kernels=bwd_kernels, bwd_ptxas_warnings=bwd_warnings,
          fusion_kernels=fusion, fusion_ptxas_warnings=fusion_warnings,
          coordinator=coordinator)
     if faults:
@@ -436,9 +448,11 @@ def phase_kernels() -> dict:
         q, k, v = qkv(bh, sq, skv, d, dtype, seed=i)
         want = fa._body_for(dtype, d) if body is None else body
         before = dict(fa.launches_by_body)
-        got = fa.flash_attention_cuda(q, k, v, d ** -0.5, causal, body=body)
+        got, lse = fa.flash_attention_cuda(q, k, v, d ** -0.5, causal,
+                                           body=body)
         torch.cuda.synchronize()
         assert fa.launches_by_body[want] == before[want] + 1, name
+        assert (lse is None) == (want != fa.BODY_WGMMA), name
         bodies[name] = fa.BODY_NAMES[want]
         ref = fa.flash_attention_reference(q, k, v, d ** -0.5, causal)
         errors[name] = (got.float() - ref.float()).abs().max().item()
@@ -511,7 +525,7 @@ def bert_large_timing() -> dict:
     runs = {name: [] for name in timed}
     for name in order:
         runs[name].append(median_ms(timed[name], launches=20))
-    got = fa.flash_attention_cuda(q, k, v, scale, False)
+    got, _ = fa.flash_attention_cuda(q, k, v, scale, False)
     ref = fa.flash_attention_reference(q, k, v, scale, False)
     plain_ms = median_ms(
         lambda: fa.flash_attention_reference(q, k, v, scale, False),
@@ -528,6 +542,102 @@ def bert_large_timing() -> dict:
             "plain_ms": plain_ms, "bytes": nbytes, "flops": flops,
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def bwd_bound_ms(bh, sq, d, causal) -> tuple:
+    """The backward's least time as ``flash_bwd_roofline_pct`` counts it:
+    q, k, v, do read and dq, dk, dv written once, against the five
+    products of the (causal half of the) score matrix; and what bounds
+    it."""
+    pairs = sq * (sq + 1) // 2 if causal else sq * sq
+    bytes_ms = 7 * bh * sq * d * 2 / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.5 * 4 * bh * pairs * d / BF16_FLOP_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_flash_bwd() -> dict:
+    """The CUDA flash backward (both kernels) against its plain version
+    (``flash_attention_bwd_reference``, blockwise fp32) at the benchmark's
+    GPT-2 shape, BERT-large's and a ragged fp16 one; then, at the GPT-2
+    and BERT-large shapes, the kernels, the plain version, the exact
+    recompute the kernels replaced (``flash_attention_bwd_plain``) and
+    sdpa's backward timed.  sdpa is a yardstick only: the port never
+    calls it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16 = torch.bfloat16
+    # (name, bh, sq, skv, d, dtype, causal): the benchmark cell's GPT-2
+    # call (12 rows x 12 heads), BERT-large's in the examples phase, and
+    # ragged lengths at head dim 128.
+    cases = [("gpt2_small", 144, SEQ, SEQ, 64, bf16, True),
+             ("bert_large", BERT_LARGE_BH, ADASUM_SEQ, ADASUM_SEQ, 64, bf16,
+              False),
+             ("fp16_d128_1000x777", 2, 1000, 777, 128, torch.float16, True)]
+    out = {}
+    for i, (name, bh, sq, skv, d, dtype, causal) in enumerate(cases):
+        q, k, v = qkv(bh, sq, skv, d, dtype, seed=30 + i)
+        do = torch.randn_like(q)
+        scale = d ** -0.5
+        _, lse = fa.flash_attention_cuda(q, k, v, scale, causal)
+        before = fa.bwd_launches
+        got = fa.flash_attention_bwd_cuda(q, k, v, do, lse, scale, causal)
+        torch.cuda.synchronize()
+        assert fa.bwd_launches == before + 2, name
+        want = fa.flash_attention_bwd_reference(q, k, v, do, lse, scale,
+                                                causal)
+        errs = {}
+        for grad, g, w in zip(("dq", "dk", "dv", "delta"), got, want):
+            errs[grad] = (g.float() - w.float()).abs().max().item()
+            # 16-bit operands (P and dS) and 16-bit gradients: 3e-2.
+            torch.testing.assert_close(g.float(), w.float(), atol=3e-2,
+                                       rtol=3e-2,
+                                       msg=lambda m: f"{name} {grad}: {m}")
+        row = {"shape": [bh, sq, skv, d], "dtype": str(dtype)[6:],
+               "causal": causal, "max_abs_err": errs}
+        if name != "fp16_d128_1000x777":
+            q4, k4, v4, do4 = (t.view(bh // 16 if name == "bert_large"
+                                      else 12, -1, t.shape[1], d)
+                               for t in (q, k, v, do))
+            q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
+            o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+            timed = {
+                "kernel": lambda: fa.flash_attention_bwd_cuda(
+                    q, k, v, do, lse, scale, causal),
+                "sdpa": lambda: torch.autograd.grad(
+                    o4, (q4, k4, v4), do4, retain_graph=True)}
+            order = ["kernel", "sdpa", "sdpa", "kernel"]
+            runs = {n: [] for n in timed}
+            for n in order:
+                runs[n].append(median_ms(timed[n], launches=10))
+            row.update(
+                order=order, runs_ms=runs,
+                ms=statistics.mean(runs["kernel"]),
+                library_ms=statistics.mean(runs["sdpa"]),
+                plain_ms=median_ms(
+                    lambda: fa.flash_attention_bwd_reference(
+                        q, k, v, do, lse, scale, causal),
+                    launches=1, rounds=3),
+                earlier_ms=median_ms(
+                    lambda: fa.flash_attention_bwd_plain(q, k, v, do, scale,
+                                                         causal),
+                    launches=2, rounds=3))
+            row["bound_ms"], row["bound_by"] = bwd_bound_ms(bh, sq, d,
+                                                            causal)
+            del o4, q4, k4, v4, do4
+        out[name] = row
+    emit("flash_bwd", **out)
+    gpt_row = out["gpt2_small"]
+    return {"name": "flash_attn_bwd", "route": "cuda",
+            "source": "horovod_tpu_torch/kernels/flash_attn_bwd.cu",
+            "replaces": "none (plain XLA: horovod_tpu/ops/"
+                        "pallas_attention.py:160)",
+            "launches": None,
+            "max_abs_err": max(max(r["max_abs_err"].values())
+                               for r in out.values()),
+            **{key: gpt_row[key] for key in ("ms", "earlier_ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")},
+            "bert_large": out["bert_large"]}
 
 
 def phase_model_parity():
@@ -553,13 +663,14 @@ def phase_model_parity():
     torch.cuda.empty_cache()
 
 
-def phase_train():
+def phase_train() -> dict:
     """A Horovod training script trains GPT-2 small with the flash kernel
     through hvd.torch in a world of one.  The last step runs under
     ``start_xla_trace``/``stop_xla_trace``: its Chrome trace must name
-    the wgmma flash kernel, and its device time is read by kernel and
-    category (``profile_step``'s reader); the step medians leave the
-    traced step out."""
+    the wgmma flash kernel and both backward kernels, and its device
+    time is read by kernel and category (``profile_step``'s reader); the
+    step medians leave the traced step out.  Returns the kernel launches
+    of its steps."""
     hvd.init()
     assert hvd.size() == 1
     cfg = gpt.gpt2_small_config(attention_impl="flash", dropout=0.0)
@@ -575,8 +686,9 @@ def phase_train():
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     fa.launches_by_body.update({body: 0 for body in fa.launches_by_body})
+    fusion0 = sum(fb.launches.values())
     losses, step_ms = [], []
     with tempfile.TemporaryDirectory() as trace_dir:
         for i in range(STEPS):
@@ -599,10 +711,14 @@ def phase_train():
             losses.append(loss.item())
     flash_traced = {n[:90]: ms for n, ms in by_name.items()
                     if "flash_fwd" in n}
+    flash_bwd_traced = {n[:90]: ms for n, ms in by_name.items()
+                        if "flash_bwd" in n}
+    bwd_launches = fa.bwd_launches
     grads = [p.grad for p in model.parameters()]
     reduced = hvd.grouped_allreduce(grads, op=hvd.Average)
     launches = fa.launches_by_body[fa.BODY_WGMMA]
     by_body = dict(fa.launches_by_body)
+    fusion = sum(fb.launches.values()) - fusion0
     peak = torch.cuda.max_memory_allocated()
     hvd.shutdown()
 
@@ -613,6 +729,9 @@ def phase_train():
     assert launches >= cfg.num_layers * STEPS, by_body
     assert flash_traced and all("flash_fwd_wgmma_kernel" in n
                                 for n in flash_traced), sorted(by_name)
+    # Both backward kernels a layer and step, and no fp32 matmul left.
+    assert bwd_launches == 2 * cfg.num_layers * STEPS, bwd_launches
+    assert len(flash_bwd_traced) == 2, sorted(by_name)
     median_step = statistics.median(step_ms[1:-1])
     emit("train", config="gpt2_small bf16 flash", batch=BATCH, seq=SEQ,
          steps=STEPS, losses=losses, step_ms=step_ms,
@@ -621,12 +740,15 @@ def phase_train():
          max_memory_allocated=peak, flash_launches=fa.launches,
          flash_launches_by_body={fa.BODY_NAMES[b]: n
                                  for b, n in by_body.items()},
+         flash_bwd_launches=bwd_launches,
          device_trace={"step": STEPS, "trace_bytes": trace_bytes,
                        "events": trace_events,
                        "device_busy_ms": sum(by_name.values()),
                        "device_ms_by_category":
                        profile_step.ms_by_category(by_name),
-                       "flash_kernel_ms": flash_traced})
+                       "flash_kernel_ms": flash_traced,
+                       "flash_bwd_kernel_ms": flash_bwd_traced})
+    return {"flash": launches, "flash_bwd": bwd_launches, "fusion": fusion}
 
 
 def phase_trace_repeat():
@@ -1067,7 +1189,7 @@ def train_2rank_worker(keras_reducer: bool = False):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     fa.launches_by_body.update({body: 0 for body in fa.launches_by_body})
     fb.launches.update({k: 0 for k in fb.launches})
     fb.plain_calls.update({k: 0 for k in fb.plain_calls})
@@ -1098,6 +1220,7 @@ def train_2rank_worker(keras_reducer: bool = False):
         wall.setdefault("first_step_end", time.time())
     counts = {"flash": fa.launches_by_body[fa.BODY_WGMMA],
               "flash_all_bodies": fa.launches,
+              "flash_bwd": fa.bwd_launches,
               "fusion": dict(fb.launches),
               "fusion_plain_calls": dict(fb.plain_calls),
               "backend": dict(backend.stats)}
@@ -1350,6 +1473,8 @@ def run_2rank(native_flag: str, keras_reducer: bool = False) -> tuple:
         assert c["fusion"]["pack"] > 0 and c["fusion"]["unpack"] > 0, c
         assert c["fusion_plain_calls"] == {"pack": 0, "unpack": 0}, c
         assert c["flash"] >= 12 * STEPS_2RANK, c
+        # Both backward kernels for each of the 12 layers, every step.
+        assert c["flash_bwd"] == 24 * STEPS_2RANK, c
         assert all(r["eager"].values()), r["eager"]
         m = r["metrics"]
         assert (m["signed"], m["unsigned"]) == (200, 403), m
@@ -1375,6 +1500,7 @@ def launch_counts(results) -> dict:
                 fusion += counted["fusion"]["pack"] + \
                     counted["fusion"]["unpack"]
     return {"flash": sum(r["counts"]["flash"] for r in results),
+            "flash_bwd": sum(r["counts"]["flash_bwd"] for r in results),
             "fusion": fusion}
 
 
@@ -1495,7 +1621,7 @@ def phase_coordinator(first_native: dict) -> dict:
     with one parameter hash: a two-rank fp32 sum with postscale 1/2 is
     exact whatever the fusion grouping.  Emits the ``coordinator`` line
     and returns the three launches' kernel counts."""
-    runs, counts = [first_native], {"flash": 0, "fusion": 0}
+    runs, counts = [first_native], {"flash": 0, "flash_bwd": 0, "fusion": 0}
     for flag in ("0", "0", "1"):
         run, results = run_2rank(flag)
         runs.append(coordinator_summary(flag, run, results))
@@ -1590,7 +1716,7 @@ def elastic_worker():
             .register_post_accumulate_grad_hook(die)
 
     torch.cuda.synchronize()
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     fa.launches_by_body.update({body: 0 for body in fa.launches_by_body})
     fb.launches.update({k: 0 for k in fb.launches})
     fb.plain_calls.update({k: 0 for k in fb.plain_calls})
@@ -1625,6 +1751,7 @@ def elastic_worker():
                 return state.step
             t0 = time.perf_counter()
             flash0 = fa.launches_by_body[fa.BODY_WGMMA]
+            bwd0 = fa.bwd_launches
             fusion0, plain0 = dict(fb.launches), dict(fb.plain_calls)
             idx = sampler.indices[batch * BATCH:(batch + 1) * BATCH]
             ids = tokens[idx].cuda()
@@ -1640,10 +1767,12 @@ def elastic_worker():
                       step_ms=(time.perf_counter() - t0) * 1e3,
                       prev_commit_ms=commit_ms[0],
                       flash=fa.launches_by_body[fa.BODY_WGMMA] - flash0,
+                      flash_bwd=fa.bwd_launches - bwd0,
                       fusion={k: fb.launches[k] - fusion0[k] for k in fusion0},
                       plain={k: fb.plain_calls[k] - plain0[k] for k in plain0},
                       counts={"flash": fa.launches_by_body[fa.BODY_WGMMA],
                               "flash_all_bodies": fa.launches,
+                              "flash_bwd": fa.bwd_launches,
                               "fusion": dict(fb.launches),
                               "fusion_plain_calls": dict(fb.plain_calls)})
             t0 = time.perf_counter()
@@ -1663,6 +1792,7 @@ def elastic_worker():
                                 for k, v in hist.items()},
               counts={"flash": fa.launches_by_body[fa.BODY_WGMMA],
                       "flash_all_bodies": fa.launches,
+                      "flash_bwd": fa.bwd_launches,
                       "fusion": dict(fb.launches),
                       "fusion_plain_calls": dict(fb.plain_calls)})
     hvd.shutdown()
@@ -1785,6 +1915,7 @@ def phase_elastic() -> dict:
     # the stop flag and of the sync's pickled objects.
     for e in step_events:
         assert e["flash"] >= 12, e
+        assert e["flash_bwd"] == 24, e
         assert e["fusion"]["pack"] == e["fusion"]["unpack"] > 0, e
         assert e["plain"] == {"pack": 0, "unpack": 0}, e
         c = e["counts"]
@@ -1823,6 +1954,7 @@ def phase_elastic() -> dict:
     for e in step_events + list(results.values()):
         last[e["pid"]] = e["counts"]
     flash = sum(c["flash"] for c in last.values())
+    flash_bwd = sum(c["flash_bwd"] for c in last.values())
     fusion = sum(c["fusion"]["pack"] + c["fusion"]["unpack"]
                  for c in last.values())
     emit("elastic", config="gpt2_small bf16 flash AdamW, batch 8 x 1024 "
@@ -1854,7 +1986,7 @@ def phase_elastic() -> dict:
          launch_s=time.time() - wall0,
          counts={str(k): v for k, v in last.items()},
          rank0_server=servers)
-    return {"flash": flash, "fusion": fusion}
+    return {"flash": flash, "flash_bwd": flash_bwd, "fusion": fusion}
 
 
 # ---------------------------------------------------------------------------
@@ -1954,7 +2086,7 @@ def durable_worker():
     ids = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
                         generator=g)
     torch.cuda.synchronize()
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     fa.launches_by_body.update({body: 0 for body in fa.launches_by_body})
     fb.launches.update({k: 0 for k in fb.launches})
     fb.plain_calls.update({k: 0 for k in fb.plain_calls})
@@ -1965,6 +2097,7 @@ def durable_worker():
     frozen_at = None
     for i in range(steps):
         flash0, flash_all0 = fa.launches_by_body[fa.BODY_WGMMA], fa.launches
+        bwd0 = fa.bwd_launches
         fusion0, plain0 = dict(fb.launches), dict(fb.plain_calls)
         stats0, ctrl0 = dict(backend.stats), dict(rt.controller.stats)
         phase_before = horovod_tpu_torch.tune_status()["phase"]
@@ -1979,6 +2112,7 @@ def durable_worker():
         counts = {
             "flash": fa.launches_by_body[fa.BODY_WGMMA] - flash0,
             "flash_all_bodies": fa.launches - flash_all0,
+            "flash_bwd": fa.bwd_launches - bwd0,
             "fusion": {k: fb.launches[k] - fusion0[k] for k in fusion0},
             "plain": {k: fb.plain_calls[k] - plain0[k] for k in plain0},
             "responses": sum(backend.stats[k] - stats0[k] for k in
@@ -2183,6 +2317,7 @@ def phase_tune_durable() -> dict:
     # --- kernels: every step ran both kernels and no plain version
     for e in steps_a[0] + steps_a[1] + steps_b[0] + steps_b[1]:
         assert e["flash"] >= 12 and e["flash_all_bodies"] == e["flash"], e
+        assert e["flash_bwd"] == 24, e
         assert e["fusion"]["pack"] == e["fusion"]["unpack"] > 0, e
         assert e["plain"] == {"pack": 0, "unpack": 0}, e
 
@@ -2258,6 +2393,8 @@ def phase_tune_durable() -> dict:
                      for r in (0, 1)},
         "flash_per_step": sorted({e["flash"] for r in (0, 1)
                                   for e in steps_a[r] + steps_b[r]}),
+        "flash_bwd_per_step": sorted({e["flash_bwd"] for r in (0, 1)
+                                      for e in steps_a[r] + steps_b[r]}),
         "packs_equal_unpacks_no_plain": True,
         "max_memory_allocated": {str(r): helds[r][0]["max_memory_allocated"]
                                  for r in (0, 1)},
@@ -2267,6 +2404,7 @@ def phase_tune_durable() -> dict:
     emit("tune_durable", **row)
     every = [e for r in (0, 1) for e in steps_a[r] + steps_b[r]]
     return {"flash": sum(e["flash"] for e in every),
+            "flash_bwd": sum(e["flash_bwd"] for e in every),
             "fusion": sum(e["fusion"]["pack"] + e["fusion"]["unpack"]
                           for e in every)}
 
@@ -2319,10 +2457,10 @@ def sharded_run(step, model, tokens: int) -> dict:
     from horovod_tpu_torch.parallel import collectives as pc
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, flash = [], [], []
+    losses, step_ms, flash, flash_bwd = [], [], [], []
     with tempfile.TemporaryDirectory() as trace_dir:
         for i in range(SHARDED_STEPS):
-            fa.launches = 0
+            fa.launches = fa.bwd_launches = 0
             route0 = pc.route_bytes
             t0 = time.perf_counter()
             if i == 0:
@@ -2340,6 +2478,7 @@ def sharded_run(step, model, tokens: int) -> dict:
             if i == 0:
                 route = pc.route_bytes - route0
             flash.append(fa.launches)
+            flash_bwd.append(fa.bwd_launches)
             losses.append(float(loss))
     median = statistics.median(step_ms[1:])
     size = hvd.size()
@@ -2352,6 +2491,7 @@ def sharded_run(step, model, tokens: int) -> dict:
             "collective_calls_step1": counted.calls,
             "host_route_all_gather_bytes_step1": route,
             "flash_launches_per_step": flash,
+            "flash_bwd_launches_per_step": flash_bwd,
             "flash_kernels_in_step1_trace": traced_flash,
             "device_busy_ms_step1": sum(by_name.values()),
             "device_ms_by_category_step1":
@@ -2554,6 +2694,8 @@ def phase_sharded_train() -> dict:
              host_route_all_gather_bytes_per_step=r0[
                  "host_route_all_gather_bytes_step1"],
              flash_launches_per_step_per_rank=r0["flash_launches_per_step"],
+             flash_bwd_launches_per_step_per_rank=r0[
+                 "flash_bwd_launches_per_step"],
              flash_kernels_in_trace=r0["flash_kernels_in_step1_trace"],
              traced_step1={"wall_ms": r0["step_ms"][0],
                            "device_busy_ms": r0["device_busy_ms_step1"],
@@ -2568,6 +2710,8 @@ def phase_sharded_train() -> dict:
             assert r["losses"][-1] < r["losses"][0], r["losses"]
             assert all(n == 12 for n in r["flash_launches_per_step"]), \
                 r["flash_launches_per_step"]
+            assert all(n == 24 for n in r["flash_bwd_launches_per_step"]), \
+                r["flash_bwd_launches_per_step"]
             assert r["flash_kernels_in_step1_trace"] == 12, r
         hashes = {r["sha256"] for r in per_rank}
         assert len(hashes) == 1, f"{model_name}: parameters differ {hashes}"
@@ -2587,6 +2731,8 @@ def phase_sharded_train() -> dict:
     emit("sharded_train_phase", seconds=time.perf_counter() - t0)
     return {"flash": sum(sum(r["flash_launches_per_step"])
                          for rows_ in rows.values() for r in rows_),
+            "flash_bwd": sum(sum(r["flash_bwd_launches_per_step"])
+                             for rows_ in rows.values() for r in rows_),
             "fusion": 0}
 
 
@@ -2882,7 +3028,7 @@ def phase_resnet50() -> dict:
     assert all(g > RESNET_STEP2_RTOL for g in gaps["half_step2"]), gaps
     assert len({r["params_sha256"] for r in results}) == 1, \
         "parameters differ between the ranks"
-    return {"flash": 0, "fusion": sum(r["fusion"]["pack"] +
+    return {"flash": 0, "flash_bwd": 0, "fusion": sum(r["fusion"]["pack"] +
                                       r["fusion"]["unpack"]
                                       for r in results)}
 
@@ -3153,7 +3299,7 @@ def phase_context_parallel() -> dict:
         assert r["backend"] == "gloo", r["backend"]
         assert math.isfinite(r["pmoe_loss"]) and \
             r["pmoe_loss"] == r0["pmoe_loss"] == r["pmoe_step_loss"], r
-    return {"flash": 0, "fusion": 0}
+    return {"flash": 0, "flash_bwd": 0, "fusion": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -3585,7 +3731,7 @@ def phase_dlrm_serve() -> dict:
         (flipped, bootstrap_step, commits)
     assert [c["kind"] for c in commits] == \
         ["base"] + ["delta"] * (len(commits) - 1), commits
-    return {"flash": 0, "fusion": sum(r["fusion"]["pack"] +
+    return {"flash": 0, "flash_bwd": 0, "fusion": sum(r["fusion"]["pack"] +
                                       r["fusion"]["unpack"]
                                       for r in results)}
 
@@ -3824,7 +3970,7 @@ def phase_spark_estimator() -> dict:
         SPARK_PARAM_ATOL, gaps
     assert fault_gap > 10 * SPARK_PARAM_ATOL, fault_gap
     assert pred.shape == (SPARK_HELDOUT, 10) and pred_gap <= SPARK_PRED_ATOL
-    return {"flash": 0, "fusion": sum(
+    return {"flash": 0, "flash_bwd": 0, "fusion": sum(
         rep["fusion"]["pack"] + rep["fusion"]["unpack"]
         for f in fits for rep in f["reports"])}
 
@@ -4026,12 +4172,16 @@ def adasum_bert_large(tmp: str) -> dict:
             for rep in reports],
         "flash_launches_per_step": [per_step(rep, lambda c: c["flash"])
                                     for rep in reports],
+        "flash_bwd_launches_per_step": [
+            per_step(rep, lambda c: c["flash_bwd"]) for rep in reports],
         "params_gap": oracle["params_gap"],
         "rounding_gap": oracle["rounding"], "fault_gap": oracle["fault"],
         "params_atol": ADASUM_PARAM_ATOL,
         "launch_s": launch_s, "oracle_s": oracle_s}
     counts = {"flash": sum(rep["after"]["flash"] - rep["before"]["flash"]
                            for rep in reports),
+              "flash_bwd": sum(rep["after"]["flash_bwd"] -
+                               rep["before"]["flash_bwd"] for rep in reports),
               "fusion": sum(rep["after"]["fusion"][k] -
                             rep["before"]["fusion"][k]
                             for rep in reports for k in ("pack", "unpack"))}
@@ -4047,8 +4197,8 @@ def phase_examples() -> dict:
     CNN (``synthetic_benchmark``), and an upstream Horovod script through
     the ``horovod`` alias (``alias``).  Gates: every launch exits 0; the
     BERT-large ranks ran on gloo, through the flash kernel (24 launches
-    a step and rank) and the fusion kernel (no plain pack), with finite
-    losses equal to the oracle's within 1e-3 and rank 0's parameters
+    a step and rank), both backward kernels (48) and the fusion kernel
+    (no plain pack), with finite losses equal to the oracle's within 1e-3 and rank 0's parameters
     within ``ADASUM_PARAM_ATOL`` of the oracle's, between the measured
     rounding and fault gaps; the benchmark printed its img/s; the alias
     script got the port, loaded no JAX and reduced a CUDA tensor
@@ -4105,6 +4255,8 @@ def phase_examples() -> dict:
             b["losses"][r], b["oracle_losses"][r])) <= 1e-3, \
             (b["losses"], b["oracle_losses"])
         assert b["flash_launches_per_step"][r] == 24, b
+        # Both backward kernels for each of BERT-large's 24 layers.
+        assert b["flash_bwd_launches_per_step"][r] == 48, b
         assert b["fusion_packs_per_step"][r] > 0, b
         assert b["fusion_plain_per_step"][r] == 0, b
         assert b["fused_responses_per_step"][r] > 0, b
@@ -4258,7 +4410,7 @@ def phase_tools() -> dict:
     dead rank; ResNet-50's loss is finite and its trace holds
     convolution kernels."""
     t0 = time.perf_counter()
-    counts = {"flash": 0, "fusion": 0}
+    counts = {"flash": 0, "flash_bwd": 0, "fusion": 0}
     with tempfile.TemporaryDirectory() as tmp:
         staging, readers = staging_and_readers(tmp)
         emit("staging", tool="horovod_tpu_torch.tools.measure_torch_staging",
@@ -4394,7 +4546,8 @@ def phase_chaos() -> dict:
     data plane sums in float64 on the card."""
     from horovod_tpu_torch.tools import chaos_soak as cs
     t0 = time.perf_counter()
-    flash0, fusion0 = fa.launches, sum(fb.launches.values())
+    flash0, bwd0 = fa.launches, fa.bwd_launches
+    fusion0 = sum(fb.launches.values())
     with tempfile.TemporaryDirectory() as tmp:
         art = os.path.join(tmp, "chaos_soak.json")
         out = run_tool("chaos_soak", *CHAOS_SOAK_ARGS, "--out", art)
@@ -4424,6 +4577,7 @@ def phase_chaos() -> dict:
         soak["metrics"]["counters"].get("hvd_chaos_results_total"))
     mttr, relay = drills["mttr_kill_idle"], drills["relay_kill_negotiation"]
     launches = {"flash": fa.launches - flash0,
+                "flash_bwd": fa.bwd_launches - bwd0,
                 "fusion": sum(fb.launches.values()) - fusion0}
     seconds = time.perf_counter() - t0
     records = soak["schedules"] + (soak["checkpoint_drill"] or [])
@@ -4477,7 +4631,7 @@ def phase_chaos() -> dict:
     assert mttr["postmortem"]["failed_rank"] == mttr["victim"], mttr
     assert relay["postmortem"]["failed_relay"] == relay["victim_relay"], \
         relay
-    assert launches == {"flash": 0, "fusion": 0}, launches
+    assert launches == {"flash": 0, "flash_bwd": 0, "fusion": 0}, launches
     assert seconds <= CHAOS_PHASE_LIMIT_S, seconds
     return launches
 
@@ -4488,9 +4642,11 @@ def phase_lint() -> dict:
     runs it, against the committed baseline.  The line gives its exit
     code, seconds and the counts its output names (new violations and
     stale baseline entries, grandfathered violations), and the files in
-    the gate's scope.  Gate: exit code 0.  It launches neither kernel."""
+    the gate's scope.  Gate: exit code 0.  It launches no kernel of this
+    repo."""
     from horovod_tpu_torch.tools import hvdlint
-    flash0, fusion0 = fa.launches, sum(fb.launches.values())
+    flash0, bwd0 = fa.launches, fa.bwd_launches
+    fusion0 = sum(fb.launches.values())
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.tools.hvdlint",
@@ -4501,13 +4657,14 @@ def phase_lint() -> dict:
     grandfathered = [int(m.group(1)) for m in (
         re.match(r"hvdlint: (\d+) grandfathered", ln) for ln in lines) if m]
     launches = {"flash": fa.launches - flash0,
+                "flash_bwd": fa.bwd_launches - bwd0,
                 "fusion": sum(fb.launches.values()) - fusion0}
     emit("lint", rc=proc.returncode,
          files_scanned=len(hvdlint.Project.from_root(REPO).files),
          violations=sum(ln.startswith(("NEW ", "STALE ")) for ln in lines),
          grandfathered=sum(grandfathered), seconds=seconds)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert launches == {"flash": 0, "fusion": 0}, launches
+    assert launches == {"flash": 0, "flash_bwd": 0, "fusion": 0}, launches
     return launches
 
 
@@ -4559,9 +4716,10 @@ def main():
 
     timed(phase_build)
     flash_row = timed(phase_kernels)
+    flash_bwd_row = timed(phase_flash_bwd)
     fusion_row = timed(phase_fusion_kernel)
     timed(phase_model_parity)
-    timed(phase_train)
+    train = timed(phase_train)
     timed(phase_trace_repeat)
     timed(phase_nccl_world1)
     launches, first_native = timed(phase_train_2rank)
@@ -4577,20 +4735,23 @@ def main():
     tools = timed(phase_tools)
     chaos = timed(phase_chaos)
     lint = timed(phase_lint)
-    paths = {"train_2rank": launches, "coordinator": coordinator,
+    paths = {"train": train, "train_2rank": launches,
+             "coordinator": coordinator,
              "elastic": elastic, "tune_durable": durable,
              "sharded_train": sharded, "resnet50": resnet50,
              "context_parallel": context_parallel,
              "dlrm_serve": dlrm_serve, "spark_estimator": spark_estimator,
              "examples": examples, "tools": tools, "chaos": chaos,
              "lint": lint}
-    for row, kernel in ((flash_row, "flash"), (fusion_row, "fusion")):
+    for row, kernel in ((flash_row, "flash"), (flash_bwd_row, "flash_bwd"),
+                        (fusion_row, "fusion")):
         row["launches"] = sum(p[kernel] for p in paths.values())
         row["launches_by_path"] = {name: p[kernel]
                                    for name, p in paths.items()}
     emit("script", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(CARD, flush=True)
-    print(json.dumps({"kernels": [flash_row, fusion_row]}), flush=True)
+    print(json.dumps({"kernels": [flash_row, flash_bwd_row, fusion_row]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

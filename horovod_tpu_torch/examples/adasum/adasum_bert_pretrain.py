@@ -38,11 +38,13 @@ from horovod_tpu_torch.training import make_bert_batch
 
 
 def counters() -> dict:
-    """Flash and fusion kernel launches, and collectives by op and
-    backend (``hvd_collective_seconds``'s counts), so far."""
+    """Flash (forward and backward) and fusion kernel launches, and
+    collectives by op and backend (``hvd_collective_seconds``'s counts),
+    so far."""
     hist = basics.metrics_snapshot()["histograms"].get(
         "hvd_collective_seconds", {})
     return {"flash": flash_attention.launches,
+            "flash_bwd": flash_attention.bwd_launches,
             "fusion": dict(fusion_buffer.launches),
             "fusion_plain": dict(fusion_buffer.plain_calls),
             "collectives": {k: h.get("count", 0) for k, h in hist.items()}}

@@ -3,8 +3,9 @@
 Each ``*.cu`` file here exports a plain C interface.  At first use it is
 compiled with ``nvcc -shared`` for ``sm_90a`` into ``build/`` beside the
 sources (listed in ``.gitignore``), under a name carrying the hash of the
-source and flags, so a rebuild happens only when either changes; the
-shared library is then opened with :mod:`ctypes`.  No PyTorch header is
+source, the shared headers (``*.cuh``) and the flags, so a rebuild
+happens only when one of them changes; the shared library is then
+opened with :mod:`ctypes`.  No PyTorch header is
 compiled, which keeps a build to seconds.
 
 :func:`build_report` reads what was built: per kernel, the registers
@@ -51,8 +52,14 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> str:
-    with open(os.path.join(KERNEL_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library built from ``source``, named by a hash of the source,
+    every header (``*.cuh``) beside it, and the flags."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(KERNEL_DIR) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(KERNEL_DIR, name), "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -38,7 +38,9 @@
 //   one's softmax also overlaps the other's products.  setmaxnreg moves
 //   registers from the producer to the consumers.  Softmax runs in the
 //   log2 domain (scale . log2 e folded into the exponent's FMA, ex2) and
-//   masks only the tiles that cross the diagonal or Skv.
+//   masks only the tiles that cross the diagonal or Skv.  Given an lse
+//   buffer, the epilogue also writes each row's log-sum-exp, from which
+//   flash_attn_bwd.cu recomputes P.
 // * 1, mma.sync (bf16 / fp16, any D): 64 x 64 tiles, four warps, 16
 //   query rows each.  Both products run on the tensor cores as mma.sync
 //   m16n8k16 with fp32 accumulators.  A warp keeps its Q fragments in
@@ -67,20 +69,12 @@
 // many dispatch slots, with only two consumer warps per SM sub-partition
 // to hide their latency.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
-#include <type_traits>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;  // query rows per CTA
 constexpr int kBK = 64;  // keys per kv tile
-constexpr float kNegInf = -1e30f;
 
 // ---------------------------------------------------------------------------
 // fp32: scalar FMAs
@@ -238,19 +232,6 @@ __global__ void __launch_bounds__(kScalarThreads)
 // bf16 / fp16: mma.sync m16n8k16 on the tensor cores
 // ---------------------------------------------------------------------------
 constexpr int kMmaThreads = 128;  // four warps x 16 query rows
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // c += a . b for one m16n8k16 tile (A row-major, B column-major).
 template <typename T>
@@ -498,12 +479,11 @@ __global__ void __launch_bounds__(kMmaThreads)
 // ---------------------------------------------------------------------------
 constexpr int kWgTile = 128;     // query rows per CTA, and keys per kv tile
 constexpr int kWgThreads = 384;  // one producer and two consumer warpgroups
-constexpr int kBox = 64;         // columns per TMA box: one 128-byte row
-constexpr float kLog2e = 1.4426950408889634f;
 // K/V stages of the shared-memory ring.  One CTA per SM already has the
 // next tile's loads in flight with two; at D = 128 a third would not fit
 // beside the two Q buffers.
 constexpr int kWgStages = 2;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 constexpr size_t wg_smem_bytes() {
@@ -511,110 +491,6 @@ constexpr size_t wg_smem_bytes() {
   // then two Q buffers and kWgStages x (K, V), each 128 rows x D 16-bit
   // values.
   return 1024 + (size_t)(2 + 2 * kWgStages) * kWgTile * D * 2;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Arrives only where `pred` holds, without a branch.
-__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(
-          smem_u32(bar)),
-      "r"((int)pred)
-      : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete.  A transfer that
-// never lands would hang the card; after about ten seconds of waiting
-// the kernel traps instead, which fails the launch.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > 20000000000LL) {
-      __trap();
-    }
-  }
-}
-
-// One box of a [BH, S, D] tensor map, dims innermost first (d, s, bh),
-// into shared memory; completion is counted on `bar` in bytes.  Rows
-// past S are zero-filled by the hardware and never read the next head.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int d, int s,
-                                            int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
-      "r"(s), "r"(bh)
-      : "memory");
-}
-
-// wgmma descriptor of a tile stored with the 128-byte swizzle: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p,
-                                               uint32_t lbo_bytes,
-                                               uint32_t sbo_bytes) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo_bytes >> 4) << 16) |
-         ((uint64_t)(sbo_bytes >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed wgmma groups are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins registers that an asynchronous wgmma reads or writes: the
-// compiler may not move their uses across this point.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void pin(uint32_t (&r)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 // Named barriers 1 and 2 order the two consumer warpgroups' wgmma
@@ -627,57 +503,6 @@ __device__ __forceinline__ void turn_pass(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
 }
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-#define HVD_F8(d, i)                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define HVD_F32(d) HVD_F8(d, 0), HVD_F8(d, 8), HVD_F8(d, 16), HVD_F8(d, 24)
-#define HVD_F64(d) \
-  HVD_F32(d), HVD_F8(d, 32), HVD_F8(d, 40), HVD_F8(d, 48), HVD_F8(d, 56)
-
-#define HVD_REGS32                                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "    \
-  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "     \
-  "%26, %27, %28, %29, %30, %31}"
-#define HVD_REGS64                                                   \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "    \
-  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "     \
-  "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "     \
-  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "     \
-  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "     \
-  "%62, %63}"
-
-// d (64 x 128, fp32) = A . B (+ d when scale_d), A and B K-major in
-// shared memory.
-#define HVD_WGMMA_SS_N128(TY, d, da, db, scale_d)                         \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"              \
-               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY  \
-               " " HVD_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"          \
-               : HVD_F64(d)                                              \
-               : "l"(da), "l"(db), "r"(scale_d))
-
-// d (64 x N, fp32) += A . B, A from registers, B MN-major in shared
-// memory (transpose flag set).
-#define HVD_WGMMA_RS_N64(TY, d, a, db)                                    \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"              \
-               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY   \
-               " " HVD_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
-               : HVD_F32(d)                                              \
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),    \
-                 "r"(1))
-#define HVD_WGMMA_RS_N128(TY, d, a, db)                                   \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"              \
-               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY  \
-               " " HVD_REGS64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
-               : HVD_F64(d)                                              \
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),    \
-                 "r"(1))
-
 template <typename T>
 __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
                                          uint64_t db, int scale_d) {
@@ -685,25 +510,6 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
     HVD_WGMMA_SS_N128("bf16", d, da, db, scale_d);
   } else {
     HVD_WGMMA_SS_N128("f16", d, da, db, scale_d);
-  }
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 64) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-      HVD_WGMMA_RS_N64("bf16", d, a, db);
-    } else {
-      HVD_WGMMA_RS_N64("f16", d, a, db);
-    }
-  } else {
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-      HVD_WGMMA_RS_N128("bf16", d, a, db);
-    } else {
-      HVD_WGMMA_RS_N128("f16", d, a, db);
-    }
   }
 }
 
@@ -774,18 +580,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
   }
 }
 
-// P, rounded to the input type, in the wgmma A-fragment layout: k-step
-// kk covers keys 16 kk .. 16 kk + 15, score blocks 2 kk and 2 kk + 1.
-template <typename T>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
-                                       const float (&sc)[64]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      pa[kk][j] = pack2<T>(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
-}
-
 // A persistent CTA: grid-stride over the (bh, 128-row q tile) work items,
 // heaviest (last q rows) first, in snake order (rounds of gridDim.x items,
 // every other round handed out in reverse) so that the CTAs' causal work
@@ -825,8 +619,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
-                           T* __restrict__ o, int bh_count, int nq_tiles,
-                           int sq, int skv, float scale_log2, int causal) {
+                           T* __restrict__ o, float* __restrict__ lse,
+                           int bh_count, int nq_tiles, int sq, int skv,
+                           float scale_log2, int causal) {
   constexpr int STAGES = kWgStages;
   constexpr int BOXES = D / kBox;      // TMA boxes per tile
   constexpr int BOX = kWgTile * kBox;  // elements per box
@@ -902,7 +697,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     // Accumulator element i of an m64nN product sits at row
     // q0 + 64 cw + rr + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 tq + (i & 1).
     const int rr = 16 * (wtid >> 5) + (lane >> 2);
-    float acc[D / 2], m[2], l[2], l_done[2], corr[2], sc[64];
+    float acc[D / 2], m[2], l[2], l_done[2], m_done[2], corr[2], sc[64];
     uint32_t pa[8][4];  // P in the A-fragment layout of P.V
 
     // Descriptors of Q buffer 0, K and V slot 0 at k-step 0; every other
@@ -931,7 +726,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const uint32_t slot = (j % STAGES) * kTileUnits;
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        wgmma_pv<T, D>(acc, pa[kk], dv + slot + kk * 16 * kBox * 2 / 16);
+        wgmma_rs<T, D>(acc, pa[kk], dv + slot + kk * 16 * kBox * 2 / 16);
       wgmma_commit();
     };
     // Only tiles that cross the diagonal or Skv need the masks (and a
@@ -941,12 +736,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
              (causal && k0 + kWgTile - 1 > w.q0 + 64 * cw) ||
              scale_log2 < 0.f;
     };
-    auto epilogue = [&](const WorkItem& w, const float (&lr)[2]) {
+    // Writes O and, where the caller asked for it, each row's log-sum-exp
+    // of the scaled scores in natural-log units: (m + log2 l) ln 2, under
+    // the same l == 0 -> 1 rule.
+    auto epilogue = [&](const WorkItem& w, const float (&lr)[2],
+                        const float (&mr)[2]) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int qpos = w.q0 + 64 * cw + rr + 8 * r;
         if (qpos < sq) {
-          const float inv = 1.f / (lr[r] == 0.f ? 1.f : lr[r]);
+          const float lsafe = lr[r] == 0.f ? 1.f : lr[r];
+          const float inv = 1.f / lsafe;
+          if (lse != nullptr && tq == 0)
+            lse[(size_t)w.bh * sq + qpos] = (mr[r] + __log2f(lsafe)) * kLn2;
           T* orow = o + ((size_t)w.bh * sq + qpos) * D + 2 * tq;
 #pragma unroll
           for (int nt = 0; nt < D / 8; ++nt)
@@ -980,7 +782,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     l[0] = l[1] = 0.f;
     softmax_tile(sc, m, l, corr, masked(cur, 0), 0, cur.q0 + 64 * cw + rr,
                  tq, skv, causal, scale_log2);
-    pack_p<T>(pa, sc);
+    pack_a<T, 8>(pa, sc);
 
     // One step: S of tile t of item w (ring slot kv, Q buffer qb) and
     // P.V of the tile before.  Between the start and the wait for P.V
@@ -1008,6 +810,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         l_done[r] = fresh ? l[r] : l_done[r];
+        m_done[r] = fresh ? m[r] : m_done[r];
         m[r] = fresh ? kNegInf : m[r];
         l[r] = fresh ? 0.f : l[r];
       }
@@ -1035,7 +838,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       else
         step(std::false_type{}, fresh);
       if (fresh) {
-        epilogue(cur, l_done);
+        epilogue(cur, l_done, m_done);
         cur = w;
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
@@ -1043,7 +846,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
       }
-      pack_p<T>(pa, sc);
+      pack_a<T, 8>(pa, sc);
     }
     // The last tile's P.V.
     mbar_wait(&full_v[(kv - 1) % STAGES], ((kv - 1) / STAGES) & 1);
@@ -1056,7 +859,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     wgmma_wait<0>();
     pin(acc);
     pin(pa);
-    epilogue(cur, l);
+    epilogue(cur, l, m);
   }
 }
 
@@ -1066,35 +869,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 constexpr int kUnsupported = -1;   // body, dtype and head dim do not match
 constexpr int kEncodeFailed = -2;  // cuTensorMapEncodeTiled refused a map
 constexpr int kNoLaunch = -3;      // nothing to compute: no kernel started
-
-// Raises a kernel's dynamic shared-memory limit once per device (the
-// attribute lives in the device's context), not on every launch.
-template <typename K>
-int allow_smem(K kernel, size_t bytes, std::atomic<uint64_t>& ready) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (ready.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) ready.fetch_or(bit, std::memory_order_acq_rel);
-  return err;
-}
-
-// The current device's SM count, read once per device.
-int sm_count(int* count) {
-  static std::atomic<int> counts[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && (*count = counts[dev].load(std::memory_order_relaxed)))
-    return cudaSuccess;
-  err = cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < 64)
-    counts[dev].store(*count, std::memory_order_relaxed);
-  return err;
-}
 
 template <int D>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, int bh,
@@ -1132,53 +906,10 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int bh,
   return cudaGetLastError();
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled, looked up once through the runtime so that
-// the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A [bh, rows, D] tensor as a 3-D map (d, rows, bh) read in boxes of
-// 64 columns x 128 rows with the 128-byte swizzle that wgmma reads.
-template <typename T, int D>
-bool encode_bsd(CUtensorMap* map, const void* ptr, int bh, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * sizeof(T),
-                                 (cuuint64_t)rows * D * sizeof(T)};
-  const cuuint32_t box[3] = {kBox, kWgTile, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map,
-            std::is_same_v<T, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-            3, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <typename T, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 int bh, int sq, int skv, float scale, int causal,
-                 cudaStream_t stream) {
+                 float* lse, int bh, int sq, int skv, float scale,
+                 int causal, cudaStream_t stream) {
   const int nq_tiles = (sq + kWgTile - 1) / kWgTile;
   if (bh == 0 || nq_tiles == 0) return kNoLaunch;
   // No key at all: every row's l is 0, so every output is 0.
@@ -1191,9 +922,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   // and not cached: they hold the tensors' addresses, which change from
   // call to call.
   CUtensorMap qmap, kmap, vmap;
-  if (!encode_bsd<T, D>(&qmap, q, bh, sq) ||
-      !encode_bsd<T, D>(&kmap, k, bh, skv) ||
-      !encode_bsd<T, D>(&vmap, v, bh, skv))
+  if (!encode_bsd<T, D>(&qmap, q, bh, sq, kWgTile) ||
+      !encode_bsd<T, D>(&kmap, k, bh, skv, kWgTile) ||
+      !encode_bsd<T, D>(&vmap, v, bh, skv, kWgTile))
     return kEncodeFailed;
   constexpr size_t smem = wg_smem_bytes<D>();
   static_assert(smem <= 232448, "more shared memory than a block may use");
@@ -1207,15 +938,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   // one per work item when there are fewer.
   const int grid = bh * nq_tiles < sms ? bh * nq_tiles : sms;
   flash_fwd_wgmma_kernel<T, D><<<grid, kWgThreads, smem, stream>>>(
-          qmap, kmap, vmap, static_cast<T*>(o), bh, nq_tiles, sq, skv,
+          qmap, kmap, vmap, static_cast<T*>(o), lse, bh, nq_tiles, sq, skv,
           scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_body(int body, const void* q, const void* k, const void* v,
-                void* o, int bh, int sq, int skv, float scale, int causal,
-                cudaStream_t stream) {
+                void* o, float* lse, int bh, int sq, int skv, float scale,
+                int causal, cudaStream_t stream) {
   if constexpr (sizeof(T) == 4) {
     if (body == 0)
       return launch_fp32<D>(q, k, v, o, bh, sq, skv, scale, causal, stream);
@@ -1225,8 +956,8 @@ int launch_body(int body, const void* q, const void* k, const void* v,
                               stream);
     if constexpr (D == 64 || D == 128) {
       if (body == 2)
-        return launch_wgmma<T, D>(q, k, v, o, bh, sq, skv, scale, causal,
-                                  stream);
+        return launch_wgmma<T, D>(q, k, v, o, lse, bh, sq, skv, scale,
+                                  causal, stream);
     }
   }
   return kUnsupported;
@@ -1234,20 +965,20 @@ int launch_body(int body, const void* q, const void* k, const void* v,
 
 template <typename T>
 int dispatch_dim(int body, const void* q, const void* k, const void* v,
-                 void* o, int bh, int sq, int skv, int head_dim, float scale,
-                 int causal, cudaStream_t stream) {
+                 void* o, float* lse, int bh, int sq, int skv, int head_dim,
+                 float scale, int causal, cudaStream_t stream) {
   switch (head_dim) {
     case 16:
-      return launch_body<T, 16>(body, q, k, v, o, bh, sq, skv, scale, causal,
-                                stream);
+      return launch_body<T, 16>(body, q, k, v, o, lse, bh, sq, skv, scale,
+                                causal, stream);
     case 32:
-      return launch_body<T, 32>(body, q, k, v, o, bh, sq, skv, scale, causal,
-                                stream);
+      return launch_body<T, 32>(body, q, k, v, o, lse, bh, sq, skv, scale,
+                                causal, stream);
     case 64:
-      return launch_body<T, 64>(body, q, k, v, o, bh, sq, skv, scale, causal,
-                                stream);
+      return launch_body<T, 64>(body, q, k, v, o, lse, bh, sq, skv, scale,
+                                causal, stream);
     case 128:
-      return launch_body<T, 128>(body, q, k, v, o, bh, sq, skv, scale,
+      return launch_body<T, 128>(body, q, k, v, o, lse, bh, sq, skv, scale,
                                  causal, stream);
     default:
       return kUnsupported;
@@ -1257,26 +988,29 @@ int dispatch_dim(int body, const void* q, const void* k, const void* v,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes.  dtype: 0 fp32, 1 fp16,
-// 2 bf16.  body: 0 the fp32 scalar body, 1 mma.sync, 2 wgmma.  Returns
+// 2 bf16.  body: 0 the fp32 scalar body, 1 mma.sync, 2 wgmma.  lse may
+// be null; where it is not, the wgmma body writes each row's
+// log-sum-exp of the scaled scores into it (fp32, [bh, sq]), which the
+// backward in flash_attn_bwd.cu reads; the other bodies ignore it.  Returns
 // the cudaError_t of the launch (0 on success), -1 for a body that does
 // not take this dtype and head dim, -2 if a tensor map cannot be encoded,
 // -3 if the output was complete without a kernel (it is empty, or has no
 // key and was zeroed).
 extern "C" int hvd_flash_attn_fwd(const void* q, const void* k, const void* v,
-                                  void* o, int bh, int sq, int skv,
-                                  int head_dim, int dtype, int body,
+                                  void* o, float* lse, int bh, int sq,
+                                  int skv, int head_dim, int dtype, int body,
                                   float scale, int causal, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dispatch_dim<float>(body, q, k, v, o, bh, sq, skv, head_dim,
-                                 scale, causal, s);
+      return dispatch_dim<float>(body, q, k, v, o, lse, bh, sq, skv,
+                                 head_dim, scale, causal, s);
     case 1:
-      return dispatch_dim<__half>(body, q, k, v, o, bh, sq, skv, head_dim,
-                                  scale, causal, s);
+      return dispatch_dim<__half>(body, q, k, v, o, lse, bh, sq, skv,
+                                  head_dim, scale, causal, s);
     case 2:
-      return dispatch_dim<__nv_bfloat16>(body, q, k, v, o, bh, sq, skv,
-                                         head_dim, scale, causal, s);
+      return dispatch_dim<__nv_bfloat16>(body, q, k, v, o, lse, bh, sq,
+                                         skv, head_dim, scale, causal, s);
     default:
       return kUnsupported;
   }

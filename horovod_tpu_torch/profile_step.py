@@ -29,6 +29,7 @@ from horovod_tpu_torch.common.timeline import start_xla_trace, stop_xla_trace
 from horovod_tpu_torch.models import gpt
 
 CATEGORIES = (("flash_fwd", ("flash_fwd",)),
+              ("flash_bwd", ("flash_bwd",)),
               ("matmul_fp32", ("f32f32", "sgemm")),
               ("matmul_16bit", ("gemm", "xmma", "cutlass", "cublas",
                                 "nvjet")),

@@ -59,9 +59,12 @@ def test_cuda_kernel_matches_plain(cuda, bh, sq, skv, d, dtype, causal,
     q, k, v = _qkv(cuda, bh, sq, skv, d, dtype)
     body = fa._body_for(dtype, d)
     before, before_body = fa.launches, dict(fa.launches_by_body)
-    got = fa.flash_attention_cuda(q, k, v, d ** -0.5, causal)
+    got, lse = fa.flash_attention_cuda(q, k, v, d ** -0.5, causal)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+    # Only the wgmma body, whose calls the backward kernels take, writes
+    # the log-sum-exp.
+    assert (lse is None) == (body != fa.BODY_WGMMA)
     assert fa.launches_by_body == {
         b: n + (b == body) for b, n in before_body.items()}
     ref = fa.flash_attention_reference(q, k, v, d ** -0.5, causal)
@@ -70,8 +73,9 @@ def test_cuda_kernel_matches_plain(cuda, bh, sq, skv, d, dtype, causal,
 
 def test_wgmma_and_mma_bodies_agree_at_gpt_shape(cuda):
     q, k, v = _qkv(cuda, 96, 1024, 1024, 64, torch.bfloat16)
-    wg = fa.flash_attention_cuda(q, k, v, 0.125, True, body=fa.BODY_WGMMA)
-    mma = fa.flash_attention_cuda(q, k, v, 0.125, True, body=fa.BODY_MMA)
+    wg, _ = fa.flash_attention_cuda(q, k, v, 0.125, True,
+                                    body=fa.BODY_WGMMA)
+    mma, _ = fa.flash_attention_cuda(q, k, v, 0.125, True, body=fa.BODY_MMA)
     torch.cuda.synchronize()
     torch.testing.assert_close(wg.float(), mma.float(), atol=3e-2,
                                rtol=3e-2)
@@ -81,7 +85,7 @@ def test_wgmma_and_mma_bodies_agree_at_gpt_shape(cuda):
 def test_wgmma_body_with_a_negative_scale(cuda, causal):
     # A negative scale sends every tile through the masked path.
     q, k, v = _qkv(cuda, 2, 300, 260, 64, torch.bfloat16)
-    got = fa.flash_attention_cuda(q, k, v, -0.2, causal)
+    got, _ = fa.flash_attention_cuda(q, k, v, -0.2, causal)
     torch.cuda.synchronize()
     ref = fa.flash_attention_reference(q, k, v, -0.2, causal)
     torch.testing.assert_close(got.float(), ref.float(), atol=3e-2,
@@ -99,7 +103,7 @@ def test_work_without_a_kernel_counts_no_launch(cuda, bh, sq, skv, d, dtype):
     # the output is complete without a kernel, and no launch is counted.
     q, k, v = _qkv(cuda, bh, sq, skv, d, dtype)
     before, before_body = fa.launches, dict(fa.launches_by_body)
-    got = fa.flash_attention_cuda(q, k, v, d ** -0.5, True)
+    got, _ = fa.flash_attention_cuda(q, k, v, d ** -0.5, True)
     torch.cuda.synchronize()
     assert fa.launches == before and fa.launches_by_body == before_body
     assert got.shape == (bh, sq, d) and not got.any()
@@ -178,6 +182,122 @@ def test_broken_build_raises_on_cuda_tensors(cuda, tmp_path, monkeypatch):
     x = torch.zeros(1, 8, 16, device=cuda)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fa.flash_attention_cuda(x, x, x, 0.25, True)
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels (kernels/flash_attn_bwd.cu) against the plain fp32
+# backward at 3e-2, the JAX package's bf16 tolerance: the kernels round P
+# and dS to the input type as wgmma operands and write 16-bit gradients.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("bh,sq,skv,d,dtype,causal", [
+    (144, 1024, 1024, 64, torch.bfloat16, True),   # GPT-2 small, a layer
+    (72, 1024, 1024, 64, torch.bfloat16, True),    # GPT-2 under tp 2
+    (128, 128, 128, 64, torch.bfloat16, False),    # BERT-large, seq 128
+    (4, 1000, 1000, 64, torch.bfloat16, True),     # a tail length
+    (4, 1000, 1000, 128, torch.bfloat16, False),
+    (2, 300, 300, 128, torch.float16, True),
+    (3, 1024, 1024, 64, torch.float16, False),
+    (2, 200, 1000, 64, torch.float16, True),       # fewer queries than keys
+    (2, 1000, 777, 128, torch.float16, True),      # more queries than keys
+    (3, 64, 300, 128, torch.bfloat16, False),
+    (1, 129, 129, 64, torch.bfloat16, True),
+])
+def test_cuda_backward_matches_plain(cuda, bh, sq, skv, d, dtype, causal):
+    q, k, v = _qkv(cuda, bh, sq, skv, d, dtype)
+    do = torch.randn(bh, sq, d, device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(9)
+                     ).to(dtype)
+    scale = d ** -0.5
+    _, lse = fa.flash_attention_cuda(q, k, v, scale, causal)
+    before = fa.bwd_launches
+    dq, dk, dv, delta = fa.flash_attention_bwd_cuda(q, k, v, do, lse, scale,
+                                                    causal)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 2
+    want = fa.flash_attention_bwd_plain(q, k, v, do, scale, causal)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref.float(), atol=3e-2,
+                                   rtol=3e-2, msg=lambda m: f"{name}: {m}")
+    # Delta is rowsum(P o dP), which is rowsum(dO o O) of the exact output.
+    out = fa.flash_attention_reference(q, k, v, scale, causal)
+    torch.testing.assert_close(delta, (do.float() * out.float()).sum(-1),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,dtype,causal", [
+    (144, 1024, 1024, 64, torch.bfloat16, True),
+    (2, 1000, 777, 128, torch.float16, True),
+    (3, 300, 260, 64, torch.bfloat16, False),
+])
+def test_forward_lse_is_the_logsumexp_of_the_scaled_scores(cuda, bh, sq, skv,
+                                                           d, dtype, causal):
+    q, k, v = _qkv(cuda, bh, sq, skv, d, dtype)
+    scale = d ** -0.5
+    before = fa.launches_by_body[fa.BODY_WGMMA]
+    out, lse = fa.flash_attention_cuda(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    assert fa.launches_by_body[fa.BODY_WGMMA] == before + 1
+    assert lse.dtype == torch.float32 and lse.shape == (bh, sq)
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if causal:
+        keep = torch.ones(sq, skv, dtype=torch.bool, device=cuda).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1), atol=1e-4,
+                               rtol=1e-4)
+    # The mma.sync body, whose calls take the plain backward, writes none.
+    mma, none = fa.flash_attention_cuda(q, k, v, scale, causal,
+                                        body=fa.BODY_MMA)
+    assert none is None and mma.shape == out.shape
+
+
+def test_cuda_backward_is_bit_equal_from_call_to_call(cuda):
+    # No atomics: each gradient element is written by one thread.
+    q, k, v = _qkv(cuda, 144, 1024, 1024, 64, torch.bfloat16)
+    do = torch.randn_like(q)
+    _, lse = fa.flash_attention_cuda(q, k, v, 0.125, True)
+    first = fa.flash_attention_bwd_cuda(q, k, v, do, lse, 0.125, True)
+    second = fa.flash_attention_bwd_cuda(q, k, v, do, lse, 0.125, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,d,bwd_kernels", [
+    (torch.bfloat16, 64, 2), (torch.float16, 128, 2),
+    (torch.float32, 64, 0), (torch.bfloat16, 32, 0)])
+def test_autograd_backward_takes_the_kernel_where_routed(cuda, dtype, d,
+                                                         bwd_kernels):
+    # [B, S, H, D] as the models call it; 16-bit at head dim 64 or 128
+    # goes through the kernels, fp32 and other head dims through the
+    # plain backward.
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(2, 300, 3, d, device=cuda, generator=g)
+               .to(dtype).requires_grad_() for _ in range(3))
+    do = torch.randn(2, 300, 3, d, device=cuda, generator=g).to(dtype)
+    before = fa.bwd_launches
+    fa.flash_attention(q, k, v, causal=True).backward(do)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches - before == bwd_kernels
+
+    def bhsd(x):
+        return x.detach().transpose(1, 2).reshape(6, 300, d)
+    want = fa.flash_attention_bwd_plain(bhsd(q), bhsd(k), bhsd(v), bhsd(do),
+                                        d ** -0.5, True)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for t, ref in zip((q, k, v), want):
+        torch.testing.assert_close(bhsd(t.grad).float(), ref.float(),
+                                   atol=tol, rtol=tol)
+
+
+def test_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 2, 64, 64, 32, torch.bfloat16)
+    lse = torch.zeros(2, 64, device=cuda)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention_bwd_cuda(q, k, v, q, lse, 0.25, True)
+    q, k, v = _qkv(cuda, 2, 64, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        fa.flash_attention_bwd_cuda(q, k, v, q, lse[:, :10], 0.125, True)
 
 
 # ---------------------------------------------------------------------------

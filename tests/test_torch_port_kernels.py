@@ -53,6 +53,20 @@ def test_library_and_log_are_named_by_the_source_hash(tmp_path,
     assert kernels.library_path("k.cu") != first
 
 
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    # A source includes the headers beside it (hopper.cuh): a change to
+    # one must rebuild every library.
+    monkeypatch.setattr(kernels, "KERNEL_DIR", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path / "build"))
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    alone = kernels.library_path("k.cu")
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    first = kernels.library_path("k.cu")
+    header.write_text("// two\n")
+    assert len({alone, first, kernels.library_path("k.cu")}) == 3
+
+
 def test_parse_ptxas_log_reads_registers_spills_and_warnings():
     per_kernel, warnings = kernels.parse_ptxas_log(PTXAS_LOG)
     assert per_kernel[MANGLED] == {"spill_bytes": 12, "registers": 168}
