@@ -198,6 +198,8 @@ from horovod_tpu_torch.models import gpt  # noqa: E402
 from horovod_tpu_torch.ops import dist_ops  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from horovod_tpu_torch.ops import fusion_buffer as fb  # noqa: E402
+from horovod_tpu_torch.ops import moe_gemm  # noqa: E402
+from horovod_tpu_torch.parallel import moe  # noqa: E402
 from horovod_tpu_torch.runner import job_secret  # noqa: E402
 from horovod_tpu_torch.runner import safe_shell_exec  # noqa: E402
 from horovod_tpu_torch.spark import LocalBackend  # noqa: E402
@@ -213,7 +215,8 @@ TRACE_REPEATS = 100  # trace_repeat's traces of each kind
 BERT_BATCH, BERT_SEQ = 16, 512    # sharded_train's BERT-base batch
 ADASUM_BATCH, ADASUM_SEQ = 8, 128  # the examples phase's BERT-large batch
 BERT_LARGE_BH = ADASUM_BATCH * 16  # its attention calls: 16 heads a row
-SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "fusion_buffer.cu")
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "fusion_buffer.cu",
+           "moe_gemm.cu")
 FUSION_THRESHOLD = 64 * 1024 * 1024  # HOROVOD_FUSION_THRESHOLD's default
 WORKER_TIMEOUT_S = 600
 # What flash_attn_fwd.cu instantiates of the wgmma body, as kernel_label
@@ -358,7 +361,20 @@ def phase_build():
     bwd_report, bwd_warnings = kernels.build_report("flash_attn_bwd.cu")
     bwd_kernels = {kernel_label(name): info
                    for name, info in sorted(bwd_report.items())}
-    faults = [w for w in warnings + bwd_warnings if "C7508" in w]
+    moe_report, moe_warnings = kernels.build_report("moe_gemm.cu")
+    moe_kernels = {next((k for k in moe_gemm.KERNELS if k in name), name):
+                   info for name, info in sorted(moe_report.items())}
+    faults = [w for w in warnings + bwd_warnings + moe_warnings
+              if "C7508" in w]
+    if sorted(moe_kernels) != sorted(moe_gemm.KERNELS):
+        faults.append(f"moe_gemm.cu: {sorted(moe_kernels)}, expected "
+                      f"{sorted(moe_gemm.KERNELS)}")
+    for label, info in moe_kernels.items():
+        if not info.get("HGMMA") or not info.get("UTMALDG") or \
+                info.get("spill_bytes", 1):
+            faults.append(f"{label}: HGMMA {info.get('HGMMA')}, UTMALDG "
+                          f"{info.get('UTMALDG')}, spills "
+                          f"{info.get('spill_bytes')} bytes")
     found = sorted(label for label in per_kernel if label.startswith("wgmma"))
     if found != WGMMA_INSTANTIATIONS:
         faults.append(f"wgmma instantiations {found}, expected "
@@ -386,6 +402,7 @@ def phase_build():
          kernels=per_kernel, ptxas_warnings=warnings,
          bwd_kernels=bwd_kernels, bwd_ptxas_warnings=bwd_warnings,
          fusion_kernels=fusion, fusion_ptxas_warnings=fusion_warnings,
+         moe_kernels=moe_kernels, moe_ptxas_warnings=moe_warnings,
          coordinator=coordinator)
     if faults:
         raise RuntimeError("build check failed: " + "; ".join(faults))
@@ -638,6 +655,169 @@ def phase_flash_bwd() -> dict:
                                              "bound_ms", "bound_by",
                                              "library_ms")},
             "bert_large": out["bert_large"]}
+
+
+# The lfm2_8b_a1b cell's expert layer: 8 held experts of 2048 x 1792,
+# 2 x 4096 tokens routed top 4 of 32.
+MOE_TOKENS, MOE_HIDDEN, MOE_WIDTH, MOE_EXPERTS, MOE_TOP_K = (
+    8192, 2048, 1792, 32, 4)
+MOE_HELD = range(0, 8)
+
+
+def moe_products(x, w13, w2, offsets):
+    """The six grouped products of one expert layer's training step, as
+    ``parallel/moe.py`` runs them, on ``x`` laid out by expert: the
+    operands (the transposed weights and activations the layer makes
+    beside them) are made once, so that only the launches are timed."""
+    inter = w2.shape[2]
+    h13 = moe_gemm.grouped_rows(x, w13, offsets)
+    act = h13[:, :inter].contiguous()
+    y = moe_gemm.grouped_rows(act, w2, offsets)
+    w13t, w2t, xt, yt, actt, h13t = (
+        t.transpose(-1, -2).contiguous() for t in (w13, w2, x, y, act, h13))
+
+    def step():
+        moe_gemm.grouped_rows(x, w13, offsets)
+        moe_gemm.grouped_rows(act, w2, offsets)
+        moe_gemm.grouped_rows(y, w2t, offsets)
+        moe_gemm.grouped_k(yt, actt, offsets)
+        moe_gemm.grouped_k(h13t, xt, offsets)
+        moe_gemm.grouped_rows(h13, w13t, offsets)
+    return step, (h13, act, y)
+
+
+def lfm2_step_launches(cell) -> tuple:
+    """One training step of ``cell``'s program as the benchmark builds
+    and runs it (its weights and first batch at seed 0, the harness's
+    step), in a world of one: (the step's launches of each ``moe_gemm``
+    kernel, the model's expert layers)."""
+    from hvdbench import traffic, worker
+    hvd.init()
+    device = torch.device("cuda", torch.cuda.current_device())
+    weights = cell.reference.make_weights(cell.config, 0, device)
+    prog = cell.driver.build(cell.config, cell.traffic, weights, device, hvd)
+    del weights
+    batch = traffic.pool(cell, 0, 0, device)[0]
+    layers = sum(isinstance(m, moe.DroplessMoE)
+                 for m in prog.model.modules())
+    before = dict(moe_gemm.launches_by_kernel)
+    worker.train_step(prog, batch)
+    torch.cuda.synchronize()
+    launches = {k: moe_gemm.launches_by_kernel[k] - before[k]
+                for k in moe_gemm.KERNELS}
+    del prog, batch
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return launches, layers
+
+
+def phase_moe_gemm() -> dict:
+    """The grouped expert kernels (``kernels/moe_gemm.cu``) at the
+    lfm2_8b_a1b cell's shapes: the held experts' rows as a uniform top-4
+    routing of 8,192 tokens over 32 experts gives them, each kernel
+    product against the plain per-expert loop, then one expert layer's
+    six products of a training step timed (the launches alone), beside
+    the plain loop over the experts' own rows and ``torch._grouped_mm``
+    (a yardstick the port never calls); and the launches of one training
+    step of the cell's program (:func:`lfm2_step_launches`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(41)
+    chosen = torch.rand(MOE_TOKENS, MOE_EXPERTS, device="cuda",
+                        generator=g).topk(MOE_TOP_K, dim=-1).indices
+    held = chosen[chosen < len(MOE_HELD)]
+    counts = torch.zeros(len(MOE_HELD), dtype=torch.int64, device="cuda")
+    counts.scatter_add_(0, held, torch.ones_like(held))
+    routed = int(counts.sum())
+    offsets = moe_gemm.padded_offsets(counts)
+    rows = moe.layout_rows(MOE_TOKENS, MOE_TOP_K, len(MOE_HELD))
+    bounds = offsets.tolist()
+    x = torch.zeros(rows, MOE_HIDDEN, device="cuda", dtype=bf16)
+    for e, c in enumerate(counts.tolist()):
+        x[bounds[e]:bounds[e] + c] = torch.randn(
+            c, MOE_HIDDEN, device="cuda", generator=g).to(bf16)
+    w13 = (0.02 * torch.randn(len(MOE_HELD), 2 * MOE_WIDTH, MOE_HIDDEN,
+                              device="cuda", generator=g)).to(bf16)
+    w2 = (0.02 * torch.randn(len(MOE_HELD), MOE_HIDDEN, MOE_WIDTH,
+                             device="cuda", generator=g)).to(bf16)
+    segs = [slice(bounds[e], bounds[e] + c)
+            for e, c in enumerate(counts.tolist())]
+    got = moe_gemm.grouped_rows(x, w13, offsets)
+    got_dw = moe_gemm.grouped_k(got.t().contiguous(), x.t().contiguous(),
+                                offsets)
+    torch.cuda.synchronize()
+    errors = {"rows": 0.0, "k": 0.0}
+    for e, r in enumerate(segs):
+        want = x[r].float() @ w13[e].float().t()
+        want_dw = got[r].float().t() @ x[r].float()
+        # bf16 output (2^-9 of a value): 1e-2 of the largest entry.
+        for key, a, b in (("rows", got[r], want), ("k", got_dw[e], want_dw)):
+            err = (a.float() - b).abs().max().item() / b.abs().max().item()
+            assert err <= 1e-2, (key, e, err)
+            errors[key] = max(errors[key], err)
+    step, (h13, act, y) = moe_products(x, w13, w2, offsets)
+
+    def plain():
+        for e, r in enumerate(segs):
+            x[r] @ w13[e].t()
+            act[r] @ w2[e].t()
+            y[r] @ w2[e]
+            y[r].t() @ act[r]
+            h13[r].t() @ x[r]
+            h13[r] @ w13[e]
+
+    offs = offsets[1:]
+
+    def library():
+        torch._grouped_mm(x, w13.transpose(1, 2), offs=offs)
+        torch._grouped_mm(act, w2.transpose(1, 2), offs=offs)
+        torch._grouped_mm(y, w2, offs=offs)
+        torch._grouped_mm(y.t(), act, offs=offs)
+        torch._grouped_mm(h13.t(), x, offs=offs)
+        torch._grouped_mm(h13, w13, offs=offs)
+
+    timed = {"kernel": step, "plain": plain, "library": library}
+    order = ["kernel", "plain", "library", "library", "plain", "kernel"]
+    runs = {n: [] for n in timed}
+    library_error = None
+    for n in order:
+        if n != "library":
+            runs[n].append(median_ms(timed[n], launches=5))
+            continue
+        if library_error:
+            continue
+        try:
+            runs[n].append(median_ms(timed[n], launches=5))
+        except RuntimeError as e:   # a yardstick only: recorded, not fatal
+            library_error = str(e).splitlines()[0][:200]
+    from hvdbench import spec
+    cell = spec.Cell("lfm2_8b_a1b.1chip")
+    bound_ms = 1e3 * cell.flops.moe_gemm_bound_s(
+        routed, torch.cuda.get_device_name(0), cell.config)
+    # One training step of the cell's program: its launches of each kernel.
+    launches, expert_layers = lfm2_step_launches(cell)
+    want = {"moe_gemm_rows": 4 * expert_layers,
+            "moe_gemm_k": 2 * expert_layers}
+    assert expert_layers and launches == want, (launches, want)
+    row = {"name": "moe_gemm", "route": "cuda",
+           "source": "horovod_tpu_torch/kernels/moe_gemm.cu",
+           "replaces": "none (the JAX package's expert layer is one dense "
+                       "product per rank: horovod_tpu/parallel/moe.py)",
+           "launches": sum(launches.values()),
+           "launches_by_kernel": launches,
+           "launches_by_path": {"lfm2_8b_a1b.1chip step": sum(
+               launches.values())},
+           "expert_layers": expert_layers,
+           "routed_rows": routed, "layout_rows": rows,
+           "max_rel_err": max(errors.values()), "rel_errors": errors,
+           "order": order, "runs_ms": runs,
+           "ms": statistics.mean(runs["kernel"]),
+           "plain_ms": statistics.mean(runs["plain"]),
+           "library_ms": (statistics.mean(runs["library"])
+                          if runs["library"] else None),
+           "library_error": library_error, "bound_ms": bound_ms}
+    emit("moe_gemm", **{k: v for k, v in row.items() if k != "name"})
+    return row
 
 
 def phase_model_parity():
@@ -4717,6 +4897,7 @@ def main():
     timed(phase_build)
     flash_row = timed(phase_kernels)
     flash_bwd_row = timed(phase_flash_bwd)
+    moe_row = timed(phase_moe_gemm)
     fusion_row = timed(phase_fusion_kernel)
     timed(phase_model_parity)
     train = timed(phase_train)
@@ -4750,8 +4931,8 @@ def main():
                                    for name, p in paths.items()}
     emit("script", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(CARD, flush=True)
-    print(json.dumps({"kernels": [flash_row, flash_bwd_row, fusion_row]}),
-          flush=True)
+    print(json.dumps({"kernels": [flash_row, flash_bwd_row, fusion_row,
+                                  moe_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

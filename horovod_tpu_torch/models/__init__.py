@@ -11,6 +11,7 @@ from .mnist import (MnistCNN, MnistMLP, convert_flax_mnist_params,
 from .dlrm import (DLRMConfig, DLRMDense, bce_logits_loss,
                    convert_flax_dlrm_params, dlrm_tiny_config,
                    synthetic_click_batch)
+from .lfm2 import LFM2MoEConfig, LFM2MoEForCausalLM
 
 __all__ = [
     "ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
@@ -25,4 +26,5 @@ __all__ = [
     "cross_entropy_loss",
     "DLRMConfig", "DLRMDense", "bce_logits_loss", "dlrm_tiny_config",
     "synthetic_click_batch", "convert_flax_dlrm_params",
+    "LFM2MoEConfig", "LFM2MoEForCausalLM",
 ]

@@ -83,7 +83,7 @@ def resolve_device(device=None) -> torch.device:
 
 def _dense(x, layer: nn.Linear, dtype):
     return F.linear(x.to(dtype), layer.weight.to(dtype),
-                    layer.bias.to(dtype))
+                    None if layer.bias is None else layer.bias.to(dtype))
 
 
 def _layer_norm(x, norm: nn.LayerNorm, dtype):

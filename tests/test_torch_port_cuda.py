@@ -1291,3 +1291,146 @@ def test_dead_rank_cannot_wedge_a_survivors_stream(cuda):
         assert done.wait(10.0), "the card did not drain"
     finally:
         world.close()
+
+
+# ---------------------------------------------------------------------------
+# The grouped expert kernels and LFM2-MoE (tests/test_torch_port_lfm2.py
+# holds their plain versions against the reference on the CPU)
+# ---------------------------------------------------------------------------
+
+def _expert_rows(counts, width, device, seed):
+    """bf16 rows laid out as the expert layer lays them out: expert e's
+    ``counts[e]`` rows from ``offsets[e]``, zero padding rows."""
+    from horovod_tpu_torch.ops import moe_gemm
+    offsets = moe_gemm.padded_offsets(torch.tensor(counts, device=device))
+    rows = int(offsets[-1]) + moe_gemm.ALIGN
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.zeros(rows, width, device=device)
+    bounds = offsets.tolist()
+    for e, c in enumerate(counts):
+        x[bounds[e]:bounds[e] + c] = torch.randn(c, width, device=device,
+                                                 generator=g)
+    return x.to(torch.bfloat16), offsets, bounds
+
+
+# The published widths (H 2048, expert width 1792), 8 experts with uneven
+# counts, one of them 0.  bf16 operands, fp32 sums in both; the kernel
+# rounds its output to bf16 (2^-9 of a value), so 1e-2 of the largest
+# entry.
+@pytest.mark.parametrize("product", ["y", "dx", "dw"])
+def test_moe_gemm_kernels_match_plain(cuda, product):
+    from horovod_tpu_torch.ops import moe_gemm
+    counts = [1100, 0, 917, 1, 2049, 640, 128, 1301]
+    E, H, I = len(counts), 2048, 1792
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = (0.02 * torch.randn(E, I, H, device=cuda, generator=g)).to(
+        torch.bfloat16)
+    x, offsets, bounds = _expert_rows(counts, H, cuda, 4)
+    dy, _, _ = _expert_rows(counts, I, cuda, 5)
+    rows = [slice(bounds[e], bounds[e] + counts[e]) for e in range(E)]
+    before = dict(moe_gemm.launches_by_kernel)
+    if product == "y":
+        got = moe_gemm.grouped_rows(x, w, offsets)
+        want = [x[r].float() @ w[e].float().t() for e, r in enumerate(rows)]
+        got = [got[r] for r in rows]
+        kernel = "moe_gemm_rows"
+    elif product == "dx":
+        got = moe_gemm.grouped_rows(dy, w.transpose(1, 2).contiguous(),
+                                    offsets)
+        want = [dy[r].float() @ w[e].float() for e, r in enumerate(rows)]
+        got = [got[r] for r in rows]
+        kernel = "moe_gemm_rows"
+    else:
+        got = moe_gemm.grouped_k(dy.t().contiguous(), x.t().contiguous(),
+                                 offsets)
+        want = [dy[r].float().t() @ x[r].float() for r in rows]
+        kernel = "moe_gemm_k"
+    torch.cuda.synchronize()
+    assert moe_gemm.launches_by_kernel[kernel] == before[kernel] + 1
+    for e, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, e
+        scale = b.abs().max().item() if b.numel() else 0.0
+        err = (a.float() - b).abs().max().item() if b.numel() else 0.0
+        assert err <= 1e-2 * scale, (product, e, err, scale)
+    if product == "dw":
+        assert got[1].abs().max().item() == 0.0   # the empty expert
+
+
+def test_moe_layer_makes_no_host_synchronisation(cuda):
+    """The dropless layer's forward and backward on the card under
+    ``set_sync_debug_mode("error")``, and its output against the plain
+    reference's layer (bf16 against fp32: 3e-2 of the largest entry)."""
+    import plain_lfm2
+    from horovod_tpu_torch.parallel import moe
+    H, I, E, T = 256, 128, 32, 1024
+    layer = moe.DroplessMoE(H, I, E, 4, range(8, 16)).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    with torch.no_grad():
+        for p in list(layer.parameters()) + [layer.expert_bias]:
+            p.copy_(0.1 * torch.randn(p.shape, device=cuda, generator=g))
+    x = torch.randn(T, H, device=cuda, generator=g).to(torch.bfloat16)
+    x.requires_grad_(True)
+    layer(x).float().sum().backward()      # builds and loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = layer(x)
+        out.float().square().sum().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    w = {"l.feed_forward." + n: t.detach().float()
+         for n, t in layer.state_dict().items()}
+    d = plain_lfm2.dims(dict(
+        vocab_size=1, hidden_size=H, intermediate_size=1,
+        moe_intermediate_size=I, num_attention_heads=1,
+        num_key_value_heads=1, num_experts=E, num_experts_per_tok=4,
+        layer_types=[], num_dense_layers=0, norm_eps=1e-5, rope_theta=1.0,
+        conv_L_cache=3, norm_topk_prob=True, routed_scaling_factor=1.0))
+    want = plain_lfm2.experts(w, "l.", x.detach().float(), d, range(8, 16))
+    err = (out.float() - want).abs().max().item()
+    assert err <= 3e-2 * want.abs().max().item(), err
+    assert torch.isfinite(x.grad).all() and torch.isfinite(
+        layer.w1.grad).all()
+
+
+def test_lfm2_two_layers_at_published_widths_match_reference(cuda):
+    """A conv layer with the dense FFN and an attention layer with the
+    experts (8 of 32 held), at LFM2-8B-A1B's widths, bf16 with the flash
+    and grouped kernels, against the plain fp32 reference on the card:
+    the loss within 2e-3 of itself; each token's logits within 2e-2 of
+    the largest (bf16 rounding through two layers) for all but 5 % of
+    the tokens: where the router's input, rounded to bf16, moves a
+    near-tie of scores, one of a token's four experts is another, and
+    at this initialisation the experts' output outweighs the residual."""
+    import plain_lfm2
+    from horovod_tpu_torch.models import lfm2
+    published = dict(
+        vocab_size=65536, hidden_size=2048, intermediate_size=7168,
+        moe_intermediate_size=1792, num_hidden_layers=2,
+        num_attention_heads=32, num_key_value_heads=8,
+        layer_types=["conv", "full_attention"], num_dense_layers=1,
+        num_experts=32, num_experts_per_tok=4, use_expert_bias=True,
+        norm_topk_prob=True, routed_scaling_factor=1.0, conv_L_cache=3,
+        conv_bias=False, norm_eps=1e-5, rope_theta=1e6)
+    cfg = lfm2.LFM2MoEConfig.from_dict(published, experts_held=range(0, 8),
+                                       attention_impl="flash")
+    model = lfm2.LFM2MoEForCausalLM(cfg, seed=0)
+    ids = torch.randint(0, 65536, (1, 1024), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(2))
+    w = {n: t.detach() for n, t in model.state_dict().items()}
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        got = model(ids)
+        loss = gpt.lm_loss(got, ids).item()
+        want = plain_lfm2.forward(w, ids, published, range(0, 8))
+        ref_loss = plain_lfm2.loss_of(w, ids, published, range(0, 8)).item()
+    per_token = (got - want).abs().amax(-1).flatten()
+    scale = want.abs().max().item()
+    off = (per_token > 2e-2 * scale).float().mean().item()
+    print(f"lfm2 two layers: loss {loss} ref {ref_loss}, logits max err "
+          f"per token: median {per_token.median().item()}, max "
+          f"{per_token.max().item()} of {scale}, share over 2e-2: {off}")
+    assert abs(loss - ref_loss) <= 2e-3 * ref_loss
+    assert per_token.median().item() <= 2e-2 * scale
+    assert off <= 0.05

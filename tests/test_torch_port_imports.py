@@ -227,16 +227,19 @@ DLRM_NAMES = {"DLRMConfig", "DLRMDense", "bce_logits_loss",
 CONVERTERS = {"convert_flax_bert_params", "convert_flax_gpt_params",
               "convert_flax_resnet_params", "convert_flax_mnist_params",
               "convert_flax_dlrm_params"}
+# Models of the port that the JAX package does not have.
+PORT_MODELS = {"LFM2MoEConfig", "LFM2MoEForCausalLM"}
 
 
 def test_models_export_the_jax_names_less_dlrm_plus_converters():
     """Since the sparse engine is ported, "less DLRM" is empty: the JAX
-    list (DLRM names included) plus the five converters."""
+    list (DLRM names included) plus the five converters, and the port's
+    own LFM2-MoE."""
     import horovod_tpu.models
     import horovod_tpu_torch.models
     assert DLRM_NAMES <= set(horovod_tpu.models.__all__)
     assert set(horovod_tpu_torch.models.__all__) == \
-        set(horovod_tpu.models.__all__) | CONVERTERS
+        set(horovod_tpu.models.__all__) | CONVERTERS | PORT_MODELS
     for name in horovod_tpu_torch.models.__all__:
         assert getattr(horovod_tpu_torch.models, name) is not None, name
 

@@ -17,7 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from horovod_tpu_torch.common import timeline as tl
 from horovod_tpu_torch.common.stall_inspector import StallInspector
-from horovod_tpu_torch.models import gpt, resnet
+from horovod_tpu_torch.models import gpt, lfm2, resnet
 from horovod_tpu_torch.tools import validate_trace
 
 
@@ -145,6 +145,37 @@ def test_tiny_gpt_step_records_its_forward_tree(off):
     assert tree["gpt.attention"] == ["flash.fwd"] * 2
     assert names.count("gpt.loss") == 1 and names.count("flash.bwd") == 2
 
+
+def test_tiny_lfm2_step_records_its_forward_tree(off):
+    cfg = lfm2.LFM2MoEConfig(
+        vocab_size=128, hidden_size=32, intermediate_size=64,
+        moe_intermediate_size=16, num_hidden_layers=3,
+        num_attention_heads=2, num_key_value_heads=1,
+        layer_types=("conv", "full_attention", "conv"), num_dense_layers=1,
+        num_experts=8, num_experts_per_tok=2, experts_held=range(0, 4),
+        dtype=torch.float32, attention_impl="flash")
+    model = lfm2.LFM2MoEForCausalLM(cfg, device="cpu", seed=0)
+    ids = torch.randint(0, cfg.vocab_size, (2, 16),
+                        generator=torch.Generator().manual_seed(0))
+    t0 = tl.now_us()
+    with _cpu_profile():
+        gpt.lm_loss(model(ids), ids).backward()
+    got = tl.spans(t0)
+    names = [s.name for s in got]
+    tree = _tree(got)
+    assert tree["lfm2.forward"] == ["lfm2.embed"] + ["lfm2.block"] * 3 + [
+        "lfm2.head"]
+    assert [s.attrs for s in got if s.name == "lfm2.block"] == [
+        {"layer": 0, "op": "conv", "ffn": "dense"},
+        {"layer": 1, "op": "attention", "ffn": "moe"},
+        {"layer": 2, "op": "conv", "ffn": "moe"}]
+    assert tree["lfm2.block"] == [
+        "lfm2.conv", "lfm2.ffn", "lfm2.attention", "moe.route",
+        "moe.dispatch", "moe.experts", "moe.combine", "lfm2.conv",
+        "moe.route", "moe.dispatch", "moe.experts", "moe.combine"]
+    assert tree["lfm2.attention"] == ["flash.fwd"]
+    assert names.count("gpt.loss") == 1 and names.count("flash.bwd") == 1
+    assert names.count("moe.bwd") == 2
 
 def test_tiny_resnet_records_its_forward_tree(off):
     model = resnet.ResNet(stage_sizes=[1, 1], block_cls=resnet.ResNetBlock,
