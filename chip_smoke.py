@@ -195,6 +195,7 @@ from horovod_tpu_torch.common.fusion import fuse_responses  # noqa: E402
 from horovod_tpu_torch.common.message import (  # noqa: E402
     DataType, Response, ResponseType)
 from horovod_tpu_torch.models import gpt  # noqa: E402
+from horovod_tpu_torch.ops import batch_norm as bn  # noqa: E402
 from horovod_tpu_torch.ops import dist_ops  # noqa: E402
 from horovod_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from horovod_tpu_torch.ops import fusion_buffer as fb  # noqa: E402
@@ -216,7 +217,7 @@ BERT_BATCH, BERT_SEQ = 16, 512    # sharded_train's BERT-base batch
 ADASUM_BATCH, ADASUM_SEQ = 8, 128  # the examples phase's BERT-large batch
 BERT_LARGE_BH = ADASUM_BATCH * 16  # its attention calls: 16 heads a row
 SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "fusion_buffer.cu",
-           "moe_gemm.cu")
+           "moe_gemm.cu", "batch_norm.cu")
 FUSION_THRESHOLD = 64 * 1024 * 1024  # HOROVOD_FUSION_THRESHOLD's default
 WORKER_TIMEOUT_S = 600
 # What flash_attn_fwd.cu instantiates of the wgmma body, as kernel_label
@@ -364,8 +365,21 @@ def phase_build():
     moe_report, moe_warnings = kernels.build_report("moe_gemm.cu")
     moe_kernels = {next((k for k in moe_gemm.KERNELS if k in name), name):
                    info for name, info in sorted(moe_report.items())}
+    bn_report, bn_warnings = kernels.build_report("batch_norm.cu",
+                                                  mnemonics=("LDG", "STG"))
+    bn_kernels = {}
+    for name, info in sorted(bn_report.items()):
+        label = next((k for k in bn.KERNELS if k in name), name)
+        bn_kernels.setdefault(label, []).append(info)
     faults = [w for w in warnings + bwd_warnings + moe_warnings
               if "C7508" in w]
+    if sorted(bn_kernels) != sorted(bn.KERNELS):
+        faults.append(f"batch_norm.cu: {sorted(bn_kernels)}, expected "
+                      f"{sorted(bn.KERNELS)}")
+    for label, infos in bn_kernels.items():
+        if any(info.get("spill_bytes", 1) for info in infos):
+            faults.append(f"{label}: spills "
+                          f"{[i.get('spill_bytes') for i in infos]} bytes")
     if sorted(moe_kernels) != sorted(moe_gemm.KERNELS):
         faults.append(f"moe_gemm.cu: {sorted(moe_kernels)}, expected "
                       f"{sorted(moe_gemm.KERNELS)}")
@@ -403,6 +417,7 @@ def phase_build():
          bwd_kernels=bwd_kernels, bwd_ptxas_warnings=bwd_warnings,
          fusion_kernels=fusion, fusion_ptxas_warnings=fusion_warnings,
          moe_kernels=moe_kernels, moe_ptxas_warnings=moe_warnings,
+         batchnorm_kernels=bn_kernels, batchnorm_ptxas_warnings=bn_warnings,
          coordinator=coordinator)
     if faults:
         raise RuntimeError("build check failed: " + "; ".join(faults))
@@ -817,6 +832,215 @@ def phase_moe_gemm() -> dict:
                           if runs["library"] else None),
            "library_error": library_error, "bound_ms": bound_ms}
     emit("moe_gemm", **{k: v for k, v in row.items() if k != "name"})
+    return row
+
+
+RESNET50_BN_BATCH = 128  # the resnet50.1chip cell's batch
+
+
+def resnet50_norm_calls(batch: int) -> list:
+    """(shape, ReLU fused, residual fused) of each BatchNorm call of one
+    ResNet-50 forward in order, recorded on the meta device."""
+    from horovod_tpu_torch.models import resnet
+    model = resnet.ResNet50(num_classes=1000, device="meta")
+    calls = []
+
+    def note(module, args, kwargs):
+        calls.append((tuple(args[0].shape), kwargs.get("act") is F.relu,
+                      kwargs.get("residual") is not None))
+
+    for m in model.modules():
+        if isinstance(m, resnet.BatchNorm):
+            m.register_forward_pre_hook(note, with_kwargs=True)
+    with torch.no_grad():
+        model(torch.empty(batch, 3, 224, 224, device="meta"), train=True)
+    return calls
+
+
+def resnet_step_launches(cell) -> dict:
+    """One training step of ``cell``'s program as the benchmark builds
+    and runs it (its weights and first batch at seed 0, the harness's
+    step), in a world of one: the step's launches of each
+    ``hvd_batchnorm`` kernel."""
+    from hvdbench import traffic, worker
+    hvd.init()
+    device = torch.device("cuda", torch.cuda.current_device())
+    weights = cell.reference.make_weights(cell.config, 0, device)
+    prog = cell.driver.build(cell.config, cell.traffic, weights, device, hvd)
+    del weights
+    batch = traffic.pool(cell, 0, 0, device)[0]
+    before = dict(bn.launches_by_kernel)
+    worker.train_step(prog, batch)
+    torch.cuda.synchronize()
+    launches = {k: bn.launches_by_kernel[k] - before[k] for k in bn.KERNELS}
+    del prog, batch
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_batchnorm() -> dict:
+    """The BatchNorm kernels (``kernels/batch_norm.cu``) at ResNet-50's
+    53 calls of a step at batch 128, bf16 activations, fp32 parameters:
+    at each distinct call, the output, the input, scale, bias and
+    residual gradients and the running statistics against the plain
+    version on the card; then the 53 calls' forward and backward timed
+    through each path (the kernels, the plain version, and
+    ``F.batch_norm`` with cuDNN, the norm alone, a yardstick the port
+    never calls), against the norm's bound as ``batchnorm_roofline_pct``
+    counts it; and the launches of one training step of the
+    ``resnet50.1chip`` program."""
+    bf16 = torch.bfloat16
+    calls = resnet50_norm_calls(RESNET50_BN_BATCH)
+    g = torch.Generator(device="cuda").manual_seed(43)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g)
+
+    inputs = []
+    for shape, relu, residual in calls:
+        c = shape[1]
+        x = (randn(shape) * (randn(1, c, 1, 1).abs() + 0.5)
+             + randn(1, c, 1, 1)).to(bf16)
+        inputs.append(dict(
+            x=x, dy=randn(shape).to(bf16),
+            r=randn(shape).to(bf16) if residual else None,
+            w=(randn(c) * 0.3 + 1).requires_grad_(),
+            b=(randn(c) * 0.3).requires_grad_(), rm=randn(c),
+            rv=torch.rand(c, device="cuda", generator=g) + 0.5, relu=relu))
+
+    def kernel(a, x, r):
+        return bn.batch_norm(x, a["w"], a["b"], a["rm"], a["rv"], train=True,
+                             momentum=0.9, eps=1e-5, residual=r,
+                             relu=a["relu"])
+
+    def plain(a, x, r):
+        return bn.batch_norm_plain(x, a["w"], a["b"], a["rm"], a["rv"], True,
+                                   0.9, 1e-5, bf16, r, a["relu"])
+
+    def library(a, x, r):
+        return F.batch_norm(x, a["rm"], a["rv"], a["w"], a["b"], True, 0.1,
+                            1e-5)
+
+    def one(fn, a, keep_stats=False):
+        """fn's output and gradients on a's call, the running statistics
+        restored unless ``keep_stats``."""
+        saved = a["rm"].clone(), a["rv"].clone()
+        x = a["x"].detach().requires_grad_()
+        r = a["r"].detach().requires_grad_() if a["r"] is not None else None
+        a["w"].grad = a["b"].grad = None
+        y = fn(a, x, r)
+        y.backward(a["dy"])
+        out = [y.detach(), x.grad, a["w"].grad, a["b"].grad,
+               r.grad if r is not None else None,
+               a["rm"].clone(), a["rv"].clone()]
+        if not keep_stats:
+            a["rm"].copy_(saved[0])
+            a["rv"].copy_(saved[1])
+        return out
+
+    # Against the plain version: the output, input and residual gradients
+    # within 1e-2 of the largest value (bf16, rounded once in the kernel,
+    # up to twice in the plain version), except at values whose output
+    # lies within rounding of the ReLU's kink, which may land on either
+    # side in the two (counted; each one's exact pre-activation within
+    # 2 bf16 epsilons of its terms' magnitudes); the scale and
+    # bias gradients within 1e-5 of the sum of their terms' magnitudes
+    # (fp32 sums over up to 1.6 M values, in two orders), plus the terms
+    # of those values; the running statistics within 1e-5.
+    errors = {n: 0.0 for n in ("y", "dx", "dresidual", "dweight", "dbias",
+                               "running_mean", "running_var")}
+    flips, seen = 0, set()
+    for (shape, relu, residual), a in zip(calls, inputs):
+        if (shape, relu, residual) in seen:
+            continue
+        seen.add((shape, relu, residual))
+        got, want = one(kernel, a), one(plain, a)
+        flip = ((got[0] > 0) != (want[0] > 0) if relu
+                else torch.zeros_like(got[0], dtype=torch.bool))
+        flips += int(flip.sum())
+        xf = a["x"].float()
+        mean = xf.mean((0, 2, 3), keepdim=True)
+        var = xf.var((0, 2, 3), unbiased=False, keepdim=True)
+        xhat = (xf - mean) * torch.rsqrt(var + 1e-5)
+        norm = xhat * a["w"].detach().view(1, -1, 1, 1)
+        bias = a["b"].detach().view(1, -1, 1, 1)
+        pre, mags = norm + bias, norm.abs() + bias.abs()
+        if a["r"] is not None:
+            pre, mags = pre + a["r"].float(), mags + a["r"].float().abs()
+        kink = 2 * torch.finfo(bf16).eps * mags
+        assert (pre.abs() <= kink)[flip].all(), shape
+        del norm, pre, mags, kink
+        for n, i in (("y", 0), ("dx", 1), ("dresidual", 4)):
+            if want[i] is not None:
+                diff = (got[i].float() - want[i].float()).abs()
+                err = ((diff if i == 0 else diff * ~flip).max()
+                       / want[i].float().abs().max()).item()
+                assert err <= 1e-2, (shape, relu, residual, n, err)
+                errors[n] = max(errors[n], err)
+        terms = a["dy"].float().abs()
+        for n, i, t in (("dbias", 3, terms),
+                        ("dweight", 2, terms * xhat.abs())):
+            err = ((got[i] - want[i]).abs() / (1e-5 * t.sum((0, 2, 3))
+                   + (t * flip).sum((0, 2, 3)))).max().item()
+            assert err <= 1, (shape, relu, residual, n, err)
+            errors[n] = max(errors[n], 1e-5 * err)
+        for n, i in (("running_mean", 5), ("running_var", 6)):
+            err = ((got[i] - want[i]).abs().max()
+                   / want[i].abs().max()).item()
+            assert err <= 1e-5, (shape, n, err)
+            errors[n] = max(errors[n], err)
+    first = one(kernel, inputs[0])
+    again = one(kernel, inputs[0])
+    bit_equal = all(torch.equal(p, q) for p, q in zip(first, again)
+                    if p is not None)
+    assert bit_equal, "the kernels differ from call to call"
+
+    def step(fn):
+        def run():
+            for a in inputs:
+                x = a["x"].detach().requires_grad_()
+                r = (a["r"].detach().requires_grad_() if a["r"] is not None
+                     else None)
+                fn(a, x, r).backward(a["dy"])
+        return run
+
+    timed = {"kernel": step(kernel), "plain": step(plain),
+             "library": step(library)}
+    order = ["kernel", "plain", "library", "library", "plain", "kernel"]
+    runs = {n: [] for n in timed}
+    for n in order:
+        runs[n].append(device_ms(timed[n], launches=3, rounds=3))
+    host_us = host_us_per_call(timed["kernel"], calls=5)
+    from hvdbench import spec
+    cell = spec.Cell("resnet50.1chip")
+    reader = spec.load_module(
+        os.path.join(cell.metrics_dir, "batchnorm_roofline_pct.py"),
+        "chip_smoke_batchnorm_roofline_pct")
+    bound_ms = 1e3 * reader.bound_s(cell.config, RESNET50_BN_BATCH,
+                                    torch.cuda.get_device_name(0))
+    del inputs, first, again
+    torch.cuda.empty_cache()
+    launches = resnet_step_launches(cell)
+    assert launches == {k: len(calls) for k in bn.KERNELS}, launches
+    row = {"name": "hvd_batchnorm", "route": "cuda",
+           "source": "horovod_tpu_torch/kernels/batch_norm.cu",
+           "replaces": "none (flax's nn.BatchNorm, left to XLA)",
+           "calls": len(calls),
+           "launches": sum(launches.values()),
+           "launches_by_kernel": launches,
+           "launches_by_path": {"resnet50.1chip step": sum(
+               launches.values())},
+           "max_rel_err": errors, "relu_flips": flips,
+           "bit_equal_call_to_call": bit_equal,
+           "order": order, "runs_ms": runs,
+           "ms": statistics.mean(runs["kernel"]),
+           "plain_ms": statistics.mean(runs["plain"]),
+           "library_ms": statistics.mean(runs["library"]),
+           "host_ms_per_step": host_us / 1e3,
+           "bound_ms": bound_ms,
+           "build_seconds": kernels.build_seconds.get("batch_norm.cu")}
+    emit("batchnorm", **{k: v for k, v in row.items() if k != "name"})
     return row
 
 
@@ -2999,6 +3223,7 @@ def resnet_benchmark() -> dict:
     fb.plain_calls.update({k: 0 for k in fb.plain_calls})
     stats.update({k: 0 for k in stats})
     collective_s0 = collective_seconds()
+    bn0 = sum(bn.launches_by_kernel.values())
     losses, step_ms = [], []
     for _ in range(RESNET_WARMUP + RESNET_ITERS * RESNET_BATCHES):
         t0 = time.perf_counter()
@@ -3027,6 +3252,7 @@ def resnet_benchmark() -> dict:
             (collective_seconds() - collective_s0) / steps * 1e3,
             "fusion": dict(fb.launches),
             "fusion_plain_calls": dict(fb.plain_calls),
+            "batchnorm": sum(bn.launches_by_kernel.values()) - bn0,
             "params_sha256": params_sha256(model)}
 
 
@@ -3208,9 +3434,14 @@ def phase_resnet50() -> dict:
     assert all(g > RESNET_STEP2_RTOL for g in gaps["half_step2"]), gaps
     assert len({r["params_sha256"] for r in results}) == 1, \
         "parameters differ between the ranks"
+    # Every norm of every step: 4 kernels a call, 53 calls a step.
+    for r in [one] + results:
+        assert r["batchnorm"] == 4 * 53 * len(r["losses"]), r["batchnorm"]
     return {"flash": 0, "flash_bwd": 0, "fusion": sum(r["fusion"]["pack"] +
                                       r["fusion"]["unpack"]
-                                      for r in results)}
+                                      for r in results),
+            "batchnorm": one["batchnorm"] + sum(r["batchnorm"]
+                                                for r in results)}
 
 
 def launch_results(cmd, env, ranks: int, timeout: float, phase: str
@@ -4898,6 +5129,7 @@ def main():
     flash_row = timed(phase_kernels)
     flash_bwd_row = timed(phase_flash_bwd)
     moe_row = timed(phase_moe_gemm)
+    bn_row = timed(phase_batchnorm)
     fusion_row = timed(phase_fusion_kernel)
     timed(phase_model_parity)
     train = timed(phase_train)
@@ -4929,10 +5161,13 @@ def main():
         row["launches"] = sum(p[kernel] for p in paths.values())
         row["launches_by_path"] = {name: p[kernel]
                                    for name, p in paths.items()}
+    bn_row["launches_by_path"].update(
+        {name: p["batchnorm"] for name, p in paths.items()
+         if "batchnorm" in p})
     emit("script", seconds=time.perf_counter() - t0, phase_seconds=seconds)
     print(CARD, flush=True)
     print(json.dumps({"kernels": [flash_row, flash_bwd_row, fusion_row,
-                                  moe_row]}), flush=True)
+                                  moe_row, bn_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -29,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..common.timeline import span
+from ..ops.batch_norm import batch_norm
 from .gpt import _init_rng, _trunc_normal, resolve_device
 
 
@@ -82,7 +83,9 @@ class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW
     channels: ``weight``/``bias`` (flax's scale/bias) and the running
     ``running_mean``/``running_var`` (flax's batch_stats mean/var), all
-    fp32; output in ``dtype``."""
+    fp32; output in ``dtype``.  The op is
+    :func:`horovod_tpu_torch.ops.batch_norm.batch_norm`: the plain
+    formula on the CPU, the hand-written kernels on the card."""
 
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5, dtype=torch.bfloat16,
@@ -96,25 +99,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
 
-    def forward(self, x, train: bool = True):
-        xf = x.float()
-        if train:
-            dims = [0] + list(range(2, x.dim()))
-            mean = xf.mean(dim=dims)
-            var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean,
-                                  0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(
-                    mean.detach() * (1 - self.momentum))
-                self.running_var.mul_(self.momentum).add_(
-                    var.detach() * (1 - self.momentum))
-        else:
-            mean, var = self.running_mean, self.running_var
-        shape = [1, -1] + [1] * (x.dim() - 2)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + \
-            self.bias.reshape(shape)
-        return y.to(self.dtype)
+    def forward(self, x, train: bool = True, residual=None,
+                act: Optional[Callable] = None):
+        """``act(norm(x) + residual)``; ``act`` (``None``: none) and the
+        residual add run inside the op where ``act`` is ``F.relu``."""
+        relu = act is F.relu
+        y = batch_norm(x, self.weight, self.bias, self.running_mean,
+                       self.running_var, train=train, momentum=self.momentum,
+                       eps=self.eps, dtype=self.dtype, residual=residual,
+                       relu=relu)
+        return y if act is None or relu else act(y)
 
 
 class ResNetBlock(nn.Module):
@@ -139,11 +133,11 @@ class ResNetBlock(nn.Module):
 
     def forward(self, x, train: bool = True):
         residual = x
-        y = self.act(self.norms[0](self.convs[0](x), train))
-        y = self.norms[1](self.convs[1](y), train)
+        y = self.norms[0](self.convs[0](x), train, act=self.act)
         if hasattr(self, "conv_proj"):
             residual = self.norm_proj(self.conv_proj(residual), train)
-        return self.act(residual + y)
+        return self.norms[1](self.convs[1](y), train, residual=residual,
+                             act=self.act)
 
 
 class BottleneckResNetBlock(nn.Module):
@@ -167,12 +161,12 @@ class BottleneckResNetBlock(nn.Module):
 
     def forward(self, x, train: bool = True):
         residual = x
-        y = self.act(self.norms[0](self.convs[0](x), train))
-        y = self.act(self.norms[1](self.convs[1](y), train))
-        y = self.norms[2](self.convs[2](y), train)
+        y = self.norms[0](self.convs[0](x), train, act=self.act)
+        y = self.norms[1](self.convs[1](y), train, act=self.act)
         if hasattr(self, "conv_proj"):
             residual = self.norm_proj(self.conv_proj(residual), train)
-        return self.act(residual + y)
+        return self.norms[2](self.convs[2](y), train, residual=residual,
+                             act=self.act)
 
 
 class ResNet(nn.Module):
@@ -221,7 +215,7 @@ class ResNet(nn.Module):
             train = self.training if train is None else train
             with span("resnet.stem"):
                 x = x.to(self.dtype)
-                x = self.act(self.bn_init(self.conv_init(x), train))
+                x = self.bn_init(self.conv_init(x), train, act=self.act)
                 x = max_pool_same(x, 3, 2)
             for i, block in enumerate(self.blocks):
                 with span("resnet.block", block=i):

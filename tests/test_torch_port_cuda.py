@@ -1434,3 +1434,210 @@ def test_lfm2_two_layers_at_published_widths_match_reference(cuda):
     assert abs(loss - ref_loss) <= 2e-3 * ref_loss
     assert per_token.median().item() <= 2e-2 * scale
     assert off <= 0.05
+
+
+# ---------------------------------------------------------------------------
+# The BatchNorm kernels (tests/test_torch_port_batch_norm.py holds the
+# plain version and the kernels' closed-form backward on the CPU)
+# ---------------------------------------------------------------------------
+
+# Every distinct BatchNorm of ResNet-50 at batch 128: (channels, height
+# and width, ReLU fused, residual fused).  The stem, each stage's first
+# 1x1 at the incoming size, its 3x3 (the stride), its block ends (the
+# residual and the ReLU) and its projection (neither).
+RESNET50_NORMS = [
+    (64, 112, True, False),
+    (64, 56, True, False), (256, 56, True, True), (256, 56, False, False),
+    (128, 56, True, False), (128, 28, True, False), (512, 28, True, True),
+    (512, 28, False, False),
+    (256, 28, True, False), (256, 14, True, False), (1024, 14, True, True),
+    (1024, 14, False, False),
+    (512, 14, True, False), (512, 7, True, False), (2048, 7, True, True),
+    (2048, 7, False, False),
+]
+# Of the largest reference value: bf16 output and input gradient round
+# once in the kernel and up to twice in the plain version (2^-9 each).
+BN_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# Of the sum of the terms' magnitudes a channel: the gradients' sums in
+# fp32 over up to 1.6 M values, in two orders.
+BN_SUM_TOL = 1e-5
+
+
+def _bn_inputs(device, n, c, hw, dtype, residual, seed=0):
+    """A convolution's output (per-channel mean and scale), the
+    parameters, running statistics, the residual and the output's
+    gradient, drawn on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape = (n, c, hw, hw)
+
+    def randn(*s):
+        return torch.randn(*s, device=device, generator=g)
+    x = (randn(shape) * (randn(1, c, 1, 1).abs() + 0.5)
+         + randn(1, c, 1, 1)).to(dtype)
+    w, b = randn(c) * 0.3 + 1, randn(c) * 0.3
+    rm, rv = randn(c), torch.rand(c, device=device, generator=g) + 0.5
+    r = randn(shape).to(dtype) if residual else None
+    dy = randn(shape).to(dtype)
+    return x, w, b, rm, rv, r, dy
+
+
+def _bn_run(fn, x, w, b, rm, rv, r, dy):
+    """fn's output, its gradients of ``sum(out * dy)`` for x, the scale,
+    the bias and the residual, and the running statistics it leaves."""
+    x, w, b = (t.clone().requires_grad_() for t in (x, w, b))
+    res = r.clone().requires_grad_() if r is not None else None
+    rm, rv = rm.clone(), rv.clone()
+    out = fn(x, w, b, rm, rv, res)
+    out.backward(dy)
+    grads = [x.grad, w.grad, b.grad, res.grad if res is not None else None]
+    return out.detach(), grads, (rm, rv)
+
+
+def _bn_fns(relu, train=True):
+    from horovod_tpu_torch.ops import batch_norm as bn
+
+    def kernel(x, w, b, rm, rv, r):
+        return bn.batch_norm(x, w, b, rm, rv, train=train, momentum=0.9,
+                             eps=1e-5, residual=r, relu=relu)
+
+    def plain(x, w, b, rm, rv, r):
+        return bn.batch_norm_plain(x, w, b, rm, rv, train, 0.9, 1e-5,
+                                   x.dtype, r, relu)
+    return kernel, plain
+
+
+def _bn_compare(got, want, args, relu, train, tol):
+    """The kernels' results against the plain version's.  A value whose
+    output lies within rounding of the ReLU's kink may land on either
+    side of it in the two, as the plain version rounds the norm to the
+    output type before it adds the residual and the kernel rounds once:
+    each such value's exact pre-activation lies within twice the output
+    type's epsilon of its terms' magnitudes, its own input and residual
+    gradients are compared nowhere, and its terms widen the tolerance of
+    the sums and, in training, of its channel's input gradient, which
+    reads those sums."""
+    x, w, b, rm, rv, r, dy = args
+    (y, (dx, dw, db, dr), stats), (y0, (dx0, dw0, db0, dr0), stats0) = \
+        got, want
+    xf, dims = x.float(), (0, 2, 3)
+    if train:
+        mean = xf.mean(dims, keepdim=True)
+        var = xf.var(dims, unbiased=False, keepdim=True)
+    else:
+        mean, var = rm.view(1, -1, 1, 1), rv.view(1, -1, 1, 1)
+    scale = torch.rsqrt(var + 1e-5) * w.view(1, -1, 1, 1)
+    xhat = (xf - mean) * torch.rsqrt(var + 1e-5)
+    norm = xhat * w.view(1, -1, 1, 1)
+    pre = norm + b.view(1, -1, 1, 1)
+    mags = norm.abs() + b.abs().view(1, -1, 1, 1)
+    if r is not None:
+        pre, mags = pre + r.float(), mags + r.float().abs()
+    flip = (y > 0) != (y0 > 0) if relu else torch.zeros_like(y, dtype=bool)
+    kink = 2 * torch.finfo(x.dtype).eps * mags
+    assert (pre.abs() <= kink)[flip].all(), \
+        (pre.abs() / kink)[flip].max().item()
+    terms = dy.float().abs()
+    # dx = a (g - sum g / M - xhat sum g xhat / M): what the flipped
+    # values' g can move in the two sums' terms.
+    slack = torch.zeros_like(xf)
+    if train:
+        M = x.numel() // x.shape[1]
+        slack = scale.abs() / M * (
+            (terms * flip).sum(dims, keepdim=True) + xhat.abs()
+            * (terms * xhat.abs() * flip).sum(dims, keepdim=True))
+    for name, a, b, skip, extra in (
+            ("y", y, y0, False, 0), ("dx", dx, dx0, True, slack),
+            ("dresidual", dr, dr0, True, 0)):
+        assert (a is None) == (b is None), name
+        if a is None:
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        diff = ((a.float() - b.float()).abs() - extra).clamp_min(0)
+        err = (diff * ~flip if skip else diff).max().item()
+        assert err <= tol * b.float().abs().max().item(), (name, err)
+    for name, a, b, t in (("dbias", db, db0, terms),
+                          ("dweight", dw, dw0, terms * xhat.abs())):
+        bound = BN_SUM_TOL * t.sum(dims) + (t * flip).sum(dims)
+        err = (a - b).abs()
+        assert (err <= bound).all(), (name, (err / bound).max().item())
+    for a, b in zip(stats, stats0):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("c,hw,relu,residual", RESNET50_NORMS,
+                         ids=[f"{c}x{hw}{'_relu' if r else ''}"
+                              f"{'_res' if s else ''}"
+                              for c, hw, r, s in RESNET50_NORMS])
+def test_batchnorm_kernels_match_plain_at_resnet50_shapes(cuda, c, hw, relu,
+                                                          residual, dtype):
+    from horovod_tpu_torch.ops import batch_norm as bn
+    args = _bn_inputs(cuda, 128, c, hw, dtype, residual)
+    kernel, plain = _bn_fns(relu)
+    before = dict(bn.launches_by_kernel)
+    got = _bn_run(kernel, *args)
+    torch.cuda.synchronize()
+    assert all(bn.launches_by_kernel[k] == before[k] + 1
+               for k in bn.KERNELS), bn.launches_by_kernel
+    want = _bn_run(plain, *args)
+    _bn_compare(got, want, args, relu, True, BN_TOL[dtype])
+
+
+# Ragged rows (one-value vectors at 7 x 7, 8-byte ones at 6 x 6 in 16
+# bits), splits that do not divide the rows, every pairing of the fused
+# parts, eval mode, and fp16.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32],
+                         ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("n,c,hw", [(3, 5, 7), (5, 3, 6), (33, 70, 9)])
+@pytest.mark.parametrize("relu,residual,train", [
+    (False, False, True), (True, False, True), (False, True, True),
+    (True, True, True), (True, True, False), (False, False, False)],
+    ids=["plain", "relu", "res", "relu_res", "eval_relu_res", "eval"])
+def test_batchnorm_kernels_match_plain_at_ragged_shapes(cuda, n, c, hw, dtype,
+                                                        relu, residual,
+                                                        train):
+    args = _bn_inputs(cuda, n, c, hw, dtype, residual, seed=1)
+    kernel, plain = _bn_fns(relu, train)
+    _bn_compare(_bn_run(kernel, *args), _bn_run(plain, *args), args, relu,
+                train,
+                BN_TOL[torch.bfloat16 if dtype != torch.float32 else dtype])
+
+
+@pytest.mark.parametrize("c,hw", [(64, 112), (2048, 7)])
+def test_batchnorm_kernels_are_bit_equal_call_to_call(cuda, c, hw):
+    args = _bn_inputs(cuda, 128, c, hw, torch.bfloat16, True, seed=2)
+    kernel, _ = _bn_fns(True)
+    first, again = _bn_run(kernel, *args), _bn_run(kernel, *args)
+    for a, b in zip([first[0], *first[1], *first[2]],
+                    [again[0], *again[1], *again[2]]):
+        assert torch.equal(a, b)
+
+
+def test_batchnorm_kernels_make_no_host_synchronisation(cuda):
+    args = _bn_inputs(cuda, 16, 256, 14, torch.bfloat16, True, seed=3)
+    kernel, _ = _bn_fns(True)
+    _bn_run(kernel, *args)      # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _bn_run(kernel, *args)
+        _bn_run(_bn_fns(True, train=False)[0], *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_resnet50_step_launches_each_batchnorm_kernel_53_times(cuda):
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.ops import batch_norm as bn
+    model = resnet.ResNet50(num_classes=1000, seed=0).train()
+    norms = sum(isinstance(m, resnet.BatchNorm) for m in model.modules())
+    x = torch.randn(2, 3, 64, 64, device=cuda)
+    labels = torch.randint(0, 1000, (2,), device=cuda)
+    before = dict(bn.launches_by_kernel)
+    torch.nn.functional.cross_entropy(model(x), labels).backward()
+    torch.cuda.synchronize()
+    got = {k: bn.launches_by_kernel[k] - before[k] for k in bn.KERNELS}
+    assert norms == 53 and got == {k: 53 for k in bn.KERNELS}, got
